@@ -223,7 +223,7 @@ class CharModel:
     # rate: spherical -> identity block, hinge -> unit axis column.
     dof_map: torch.Tensor              # (J-1, 3, D)
 
-    # per-device tables derived from this model (the substep kernel's
+    # per-device tables derived from this model (the control-step kernel's
     # packed constants); filled on first use, dropped by replace()/to()
     derived: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)

@@ -41,10 +41,13 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
-def library_path(name: str, sources: Sequence[str]) -> Path:
-    """Where the library built from ``sources`` (names under csrc/) lives:
+def library_path(name: str, sources: Sequence[str],
+                 defines: Sequence[str] = ()) -> Path:
+    """Where the library built from ``sources`` (names under csrc/), with
+    the extra ``defines`` (``-DNAME`` flags), lives:
     ``build/parc_torch/<name>-<hash of every csrc file and the flags>.so``."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(sources)).encode())
+    h = hashlib.sha256(
+        " ".join(NVCC_FLAGS + tuple(defines) + tuple(sources)).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh", ".h"):
             h.update(f.name.encode())
@@ -52,9 +55,10 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: Sequence[str]) -> Path:
+def build(name: str, sources: Sequence[str],
+          defines: Sequence[str] = ()) -> Path:
     """Compile ``sources`` with nvcc unless the hashed library exists."""
-    out = library_path(name, sources)
+    out = library_path(name, sources, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -62,7 +66,7 @@ def build(name: str, sources: Sequence[str]) -> Path:
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp,
            *[str(CSRC / s) for s in sources]]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -78,6 +82,6 @@ def build(name: str, sources: Sequence[str]) -> Path:
 
 
 @functools.cache
-def load(name: str, sources: tuple) -> ctypes.CDLL:
+def load(name: str, sources: tuple, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load a kernel library; one load per process."""
-    return ctypes.CDLL(str(build(name, sources)))
+    return ctypes.CDLL(str(build(name, sources, defines)))

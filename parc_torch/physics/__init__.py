@@ -1,1 +1,1 @@
-"""Articulated rigid-body physics and the substep kernel."""
+"""Articulated rigid-body physics and the control-step kernel."""

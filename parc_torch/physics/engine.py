@@ -15,10 +15,10 @@ State layout: root state is (pos, quat, lin vel, ang vel) = 13-D; dof
 state is (joint quats, dof vel); per-body net contact forces are kept for
 the reward/done terms.
 
-:func:`control_step` drives the substep kernel (physics/substep.py): the
-state is packed component-major once per control step, contact runs as
-plain torch ops between substeps, and the kernel does PD + ABA +
-integrate + FK. On CPU tensors the same driver runs the kernel's plain
+:func:`control_step` drives the control-step kernel (physics/substep.py):
+the state is packed component-major once per control step, one launch
+runs every substep's contact, PD, ABA, integration and FK, and the state
+is unpacked once. On CPU tensors the same driver runs the kernel's plain
 version.
 """
 
@@ -502,54 +502,38 @@ def control_step(model: cm.CharModel, params: SimParams,
                  terrain: terrain_lib.Terrain, state: SimState,
                  pd_target_dof: torch.Tensor, sim_steps: int = 2,
                  terrain_idx: Optional[torch.Tensor] = None,
-                 substep_fn=None) -> SimState:
+                 step_fn=None) -> SimState:
     """One 30 Hz control step = ``sim_steps`` x 60 Hz sim steps of
     ``params.substeps`` substeps each, all holding the same PD target.
 
-    The state is packed component-major once, every substep runs contact
-    (torch ops on the body rows) then the substep kernel, and the state is
-    unpacked once at the end. ``contact_forces`` is the substep average of
-    the last sim step. ``substep_fn`` defaults to the kernel wrapper
-    :func:`parc_torch.physics.substep.substep`; pass
-    ``substep.substep_reference`` to run the plain version on any device.
+    The state is packed component-major once, one call of ``step_fn``
+    runs every substep (contact, then PD + ABA + integrate + FK), and the
+    state is unpacked once. ``contact_forces`` is the substep average of
+    the last sim step. ``step_fn`` defaults to the kernel wrapper
+    :func:`parc_torch.physics.substep.control_step_packed`; pass
+    ``substep.control_step_packed_reference`` to run the plain version on
+    any device.
     """
     from parc_torch.physics import substep as sub
 
-    step = sub.substep if substep_fn is None else substep_fn
+    step = sub.control_step_packed if step_fn is None else step_fn
     lead = state.root_pos.shape[:-1]
     n = math.prod(lead)
     J = model.num_bodies
     flat_state = state if len(lead) == 1 else _reshape_state(state, (n,))
     act = pd_target_dof.expand(lead + (model.dof_size,)).reshape(n, -1)
     tidx = (None if terrain_idx is None
-            else terrain_idx.expand(lead).reshape(n))
-    h = params.dt / params.substeps
+            else terrain_idx.expand(lead).reshape(n).to(torch.int32))
 
-    lstate = sub.state_layout(model)
-    lconst = sub.const_layout(model)
     if params.control_mode in ("pd_implicit", "pd_exp"):
         qtar = cm.dof_to_rot(model, act)
     else:
         qtar = torch.zeros((n, J - 1, 4), dtype=act.dtype, device=act.device)
-    state_p = sub.pack(lstate, vars(flat_state), n)
-    const_p = sub.pack(lconst, {"act": act, "qtar": qtar}, n)
-
-    net_accum = None
-    for _ in range(sim_steps):
-        step_net = 0.0
-        for _ in range(params.substeps):
-            view = flat_state.replace(**{
-                f: sub.unpack(state_p, lstate, f) for f in sub.BODY_FIELDS})
-            f_ext, net = compute_contact_forces(model, params, terrain, view,
-                                                tidx)
-            step_net = step_net + net
-            fext_p = f_ext.reshape(n, 6 * J).t().contiguous()
-            state_p = step(model, params, h, state_p, fext_p, const_p)
-        net_accum = step_net / params.substeps
-
-    out = flat_state.replace(
-        contact_forces=net_accum,
-        **{f: sub.unpack(state_p, lstate, f) for f, _ in lstate.fields})
+    state_p = sub.pack(sub.state_layout(model), vars(flat_state), n)
+    const_p = sub.pack(sub.const_layout(model), {"act": act, "qtar": qtar}, n)
+    state_p, contact_p = step(model, params, terrain, state_p, const_p, tidx,
+                              sim_steps)
+    out = sub.unpack_state(model, state_p, contact_p)
     return out if len(lead) == 1 else _reshape_state(out, lead)
 
 

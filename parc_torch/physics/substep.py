@@ -1,39 +1,46 @@
-"""The physics substep kernel: its wrapper, its plain version, its layout.
+"""The physics control-step kernel: its wrapper, its plain version, its layout.
 
-One substep = PD torque (all control modes, hard or soft joint limits) ->
-Featherstone ABA -> semi-implicit Euler -> FK with body velocities, for
-every env. The kernel (csrc/substep.cu, one CUDA thread per env) replaces
-the TPU kernel ``parc_tpu/physics/pallas_substep.py::_substep_kernel``.
+One control step = ``sim_steps`` x ``params.substeps`` substeps, each =
+heightfield contact -> PD torque (all control modes, hard or soft joint
+limits) -> Featherstone ABA -> semi-implicit Euler -> FK with body
+velocities, for every env, with the PD target held. The kernel
+(csrc/control_step.cu, one launch per control step, a team of lanes per
+env) replaces the TPU kernel
+``parc_tpu/physics/pallas_substep.py::_substep_kernel`` and the contact
+pass run between its launches (``parc_tpu/physics/engine.py``
+``compute_contact_forces``).
 
-Arrays are component-major (C, N) f32, so each kernel thread reads its
-env's column and neighbouring threads read neighbouring addresses:
+Arrays are component-major (C, N) f32, so the kernel's loads of a row of
+neighbouring envs are neighbouring addresses:
 
 * state (292, N) for the humanoid, rows in :func:`state_layout` order;
-* f_ext (6J, N): per-body spatial contact force (moment; force);
-* const (D + 4(J-1), N): the PD target / action and its joint quats.
+* const (D + 4(J-1), N): the PD target / action and its joint quats;
+* contact (3J, N): per-body net world contact force, the substep average
+  of the last sim step.
 
-:func:`substep` launches the kernel on CUDA tensors and runs
-:func:`substep_reference` (same packed signature, plain torch ops) on CPU
-tensors; any other device raises.
+:func:`control_step_packed` launches the kernel on CUDA tensors and runs
+:func:`control_step_packed_reference` (same signature, plain torch ops) on
+CPU tensors; any other device raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from parc_torch.anim import char_model as cm
 from parc_torch.physics import engine
+from parc_torch.utils import terrain as terrain_lib
 
-BODY_FIELDS = ("body_pos", "body_rot", "body_vel", "body_ang_vel")
 
 # codes shared with csrc/substep_math.cuh
 _JOINT_CODES = {cm.ROOT: 0, cm.HINGE: 1, cm.SPHERICAL: 2, cm.FIXED: 3}
 _MODE_CODES = {m: i for i, m in enumerate(engine.CONTROL_MODES)}
-SOURCES = ("substep.cu",)
+SOURCES = ("control_step.cu",)
+LIBRARY = "control_step"
 
 
 class Layout:
@@ -79,16 +86,55 @@ def unpack(packed: torch.Tensor, layout: Layout, name: str) -> torch.Tensor:
     return packed[o:o + k].t().reshape((packed.shape[1],) + layout.shapes[name])
 
 
+def unpack_state(model: cm.CharModel, state_p: torch.Tensor,
+                 contact_p: Optional[torch.Tensor] = None) -> engine.SimState:
+    """A packed state (and packed contact forces) as a SimState of views."""
+    lstate = state_layout(model)
+    fields = {name: unpack(state_p, lstate, name) for name, _ in lstate.fields}
+    contact = (torch.zeros_like(fields["body_pos"]) if contact_p is None
+               else contact_p.t().reshape(fields["body_pos"].shape))
+    return engine.SimState(contact_forces=contact, **fields)
+
+
+def level_schedule(parents: Sequence[int]):
+    """The tree passes' schedule of a body tree given by its parent indices
+    (each parent listed before its children).
+
+    Returns (level of each body, the bodies of each level, the children
+    of each body highest index first: the order in which engine.aba's
+    inward loop adds them to their parent)."""
+    level: List[int] = []
+    for j, p in enumerate(parents):
+        if p >= j or (p < 0 and j > 0):
+            raise ValueError(f"body {j} has parent {p}: the tree must list "
+                             f"one root first and each parent before its "
+                             f"children")
+        level.append(0 if p < 0 else level[p] + 1)
+    levels = [[j for j, lv in enumerate(level) if lv == k]
+              for k in range(max(level) + 1)]
+    children = [[c for c in range(len(parents) - 1, 0, -1)
+                 if parents[c] == j] for j in range(len(parents))]
+    return level, levels, children
+
+
 def model_tables(model: cm.CharModel) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's packed model constants (int32, f32) on the model's
     device, built once per model and device (layout: substep_math.cuh)."""
-    key = ("substep_tables", str(model.device))
+    key = ("control_step_tables", str(model.device))
     if key not in model.derived:
         nb, nd = model.num_bodies, model.dof_size
+        level, levels, children = level_schedule(model.parent_indices)
+        point_body = model.contact_point_body.cpu().numpy().astype(np.int64)
+        npt = point_body.shape[0]
+        point_start = np.concatenate(
+            [[0], np.cumsum(np.bincount(point_body, minlength=nb))])
         ints = np.concatenate([
-            [nb, nd], model.parent_indices,
+            [nb, nd, npt, len(levels)], model.parent_indices,
             [_JOINT_CODES[t] for t in model.joint_types],
-            model.dof_offsets]).astype(np.int32)
+            model.dof_offsets, level,
+            np.concatenate([[0], np.cumsum([len(c) for c in children])]),
+            [c for ch in children for c in ch], point_body, point_start,
+            np.argsort(point_body, kind="stable")]).astype(np.int32)
 
         def host(x):
             return x.detach().cpu().numpy().astype(np.float32).reshape(nb, -1)
@@ -108,105 +154,240 @@ def model_tables(model: cm.CharModel) -> Tuple[torch.Tensor, torch.Tensor]:
                 model.dof_stiffness, model.dof_damping,
                 model.dof_motor_effort, model.dof_limits_lower,
                 model.dof_limits_upper, model.dof_armature)])
-        floats = np.concatenate([body.ravel(), dofs.ravel()]).astype(np.float32)
+        points = [model.contact_point_offset.cpu().numpy().ravel(),
+                  model.contact_point_radius.cpu().numpy().ravel()]
+        floats = np.concatenate([body.ravel(), dofs.ravel(), *points]
+                                ).astype(np.float32)
         model.derived[key] = (torch.as_tensor(ints, device=model.device),
                               torch.as_tensor(floats, device=model.device))
     return model.derived[key]
 
 
-def library() -> ctypes.CDLL:
-    """The built kernel library (nvcc at first use; see cuda_build)."""
+def step_params(params: engine.SimParams, sim_steps: int):
+    """The kernel's scalar arguments (f32 and int32 arrays, in the order
+    parc::step_params of csrc/substep_math.cuh reads them)."""
+    floats = np.asarray([
+        params.dt / params.substeps, params.torque_limit_scale,
+        params.hard_limit_stiffness, params.hard_limit_damping,
+        params.limit_stiffness, params.limit_damping, params.gravity,
+        params.contact_stiffness, params.contact_damping, params.friction,
+        1.0 / params.slip_vel, params.slip_vel ** 2 * 1e-4,
+        params.max_contact_force], np.float32)
+    ints = np.asarray([_MODE_CODES[params.control_mode],
+                       int(params.hard_joint_limits), sim_steps,
+                       params.substeps], np.int32)
+    return floats, ints
+
+
+def stacked_terrain(terrain: terrain_lib.Terrain):
+    """(hf (M, H, W), min_point (M, 2), dxdy (2,)): a single terrain as a
+    stack of one."""
+    if terrain.hf.ndim == 2:
+        return terrain.hf[None], terrain.min_point[None], terrain.dxdy
+    return terrain.hf, terrain.min_point, terrain.dxdy
+
+
+def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built kernel library (nvcc at first use; see cuda_build);
+    ``defines`` such as ``PHASE_CLOCKS`` build a variant of it."""
     from parc_torch import cuda_build
 
-    lib = cuda_build.load("substep", SOURCES)
-    fn = lib.parc_substep_launch
+    lib = cuda_build.load(LIBRARY, SOURCES, defines)
+    fn = lib.parc_control_step_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                       + [ctypes.c_float] * 7 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
-        lib.parc_max_bodies.restype = ctypes.c_int
-        lib.parc_max_dofs.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3)
+        for name in ("parc_max_bodies", "parc_max_contact_points",
+                     "parc_control_step_blocks",
+                     "parc_control_step_smem_bytes", "parc_phases"):
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _check(model: cm.CharModel, state_p, fext_p, const_p):
+# the stages of a substep (csrc/substep_math.cuh Phase), for phase_cycles
+PHASES = ("contact points", "contact sums", "torques and inertias",
+          "velocities", "bias forces", "inward pass", "outward pass",
+          "integration", "FK")
+PHASE_CLOCKS = ("-DPARC_PHASE_CLOCKS",)
+
+
+def _check(model: cm.CharModel, params: engine.SimParams, terrain,
+           state_p, const_p, terrain_idx, sim_steps):
     n = state_p.shape[-1]
     want = {"state": (state_layout(model).total, n),
-            "f_ext": (6 * model.num_bodies, n),
             "const": (const_layout(model).total, n)}
-    for name, t in (("state", state_p), ("f_ext", fext_p),
-                    ("const", const_p)):
+    dev = state_p.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"control_step runs on cuda or cpu tensors, not {dev}")
+    for name, t in (("state", state_p), ("const", const_p)):
         if t.dtype != torch.float32:
-            raise TypeError(f"substep: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"control_step: {name} must be float32, got "
+                            f"{t.dtype}")
         if tuple(t.shape) != want[name]:
-            raise ValueError(f"substep: {name} has shape {tuple(t.shape)}, "
-                             f"expected {want[name]}")
+            raise ValueError(f"control_step: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
         if not t.is_contiguous():
-            raise ValueError(f"substep: {name} must be contiguous")
-        if t.device != state_p.device:
-            raise ValueError(f"substep: {name} is on {t.device}, state on "
-                             f"{state_p.device}")
-
-
-def substep(model: cm.CharModel, params: engine.SimParams, h: float,
-            state_p: torch.Tensor, fext_p: torch.Tensor,
-            const_p: torch.Tensor) -> torch.Tensor:
-    """One substep of every env: packed state in, new packed state out.
-
-    Launches the CUDA kernel on CUDA tensors (counted in
-    ``substep.launches``); runs :func:`substep_reference` on CPU tensors.
-    """
-    _check(model, state_p, fext_p, const_p)
+            raise ValueError(f"control_step: {name} must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"control_step: {name} is on {t.device}, state "
+                             f"on {dev}")
+    if terrain_idx is not None:
+        if terrain_idx.dtype != torch.int32:
+            raise TypeError(f"control_step: terrain_idx must be int32, got "
+                            f"{terrain_idx.dtype}")
+        if tuple(terrain_idx.shape) != (n,) or not terrain_idx.is_contiguous():
+            raise ValueError(f"control_step: terrain_idx must be a contiguous "
+                             f"({n},) array, got {tuple(terrain_idx.shape)}")
+        if terrain_idx.device != dev:
+            raise ValueError(f"control_step: terrain_idx is on "
+                             f"{terrain_idx.device}, state on {dev}")
+    elif terrain.hf.ndim == 3:
+        raise ValueError("control_step: a stacked terrain needs terrain_idx")
+    for name, t in zip(("hf", "min_point", "dxdy"), stacked_terrain(terrain)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"control_step: terrain {name} must be float32 "
+                             f"on {dev}, got {t.dtype} on {t.device}")
     if params.control_mode not in _MODE_CODES:
         raise ValueError(f"unknown control_mode {params.control_mode!r}")
+    if sim_steps < 1 or params.substeps < 1:
+        raise ValueError(f"control_step: sim_steps ({sim_steps}) and "
+                         f"substeps ({params.substeps}) must be >= 1")
+
+
+def control_step_packed(model: cm.CharModel, params: engine.SimParams,
+                        terrain: terrain_lib.Terrain, state_p: torch.Tensor,
+                        const_p: torch.Tensor,
+                        terrain_idx: Optional[torch.Tensor],
+                        sim_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One control step of every env: packed state in, (new packed state,
+    packed contact forces) out.
+
+    Launches the CUDA kernel on CUDA tensors (counted in
+    ``control_step_packed.launches``); runs
+    :func:`control_step_packed_reference` on CPU tensors. ``terrain_idx``
+    (int32 (N,)) picks each env's terrain of a stacked terrain (an index
+    past the stack is clamped to it by the kernel); None for one terrain.
+    """
+    _check(model, params, terrain, state_p, const_p, terrain_idx, sim_steps)
     dev = state_p.device
     if dev.type == "cpu":
-        return substep_reference(model, params, h, state_p, fext_p, const_p)
-    if dev.type != "cuda":
-        raise ValueError(f"substep runs on cuda or cpu tensors, not {dev}")
-    lib = library()
-    if (model.num_bodies > lib.parc_max_bodies()
-            or model.dof_size > lib.parc_max_dofs()):
-        raise ValueError(
-            f"substep kernel takes at most {lib.parc_max_bodies()} bodies and "
-            f"{lib.parc_max_dofs()} dofs; model has {model.num_bodies} and "
-            f"{model.dof_size}")
-    if model.device != dev:
-        raise ValueError(f"model is on {model.device}, state on {dev}")
-    itab, ftab = model_tables(model)
-    out = torch.empty_like(state_p)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.parc_substep_launch(
-            state_p.data_ptr(), fext_p.data_ptr(), const_p.data_ptr(),
-            out.data_ptr(), itab.data_ptr(), ftab.data_ptr(),
-            state_p.shape[1], h, params.torque_limit_scale,
-            params.hard_limit_stiffness, params.hard_limit_damping,
-            params.limit_stiffness, params.limit_damping, params.gravity,
-            _MODE_CODES[params.control_mode], int(params.hard_joint_limits),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"substep kernel launch failed: CUDA error {rc}")
-    substep.launches += 1
+        return control_step_packed_reference(model, params, terrain, state_p,
+                                             const_p, terrain_idx, sim_steps)
+    out = _launch(library(), model, params, terrain, state_p, const_p,
+                  terrain_idx, sim_steps)
+    control_step_packed.launches += 1
     return out
 
 
-substep.launches = 0
+control_step_packed.launches = 0
+
+
+def _launch(lib, model, params, terrain, state_p, const_p, terrain_idx,
+            sim_steps):
+    """One launch of ``lib``'s kernel on checked CUDA tensors."""
+    dev = state_p.device
+    if model.device != dev:
+        raise ValueError(f"model is on {model.device}, state on {dev}")
+    npt = model.contact_point_body.shape[0]
+    if (model.num_bodies > lib.parc_max_bodies()
+            or npt > lib.parc_max_contact_points()):
+        raise ValueError(
+            f"control_step kernel takes at most {lib.parc_max_bodies()} "
+            f"bodies and {lib.parc_max_contact_points()} contact points; "
+            f"model has {model.num_bodies} and {npt}")
+    itab, ftab = model_tables(model)
+    hf, min_point, dxdy = (t.contiguous() for t in stacked_terrain(terrain))
+    n = state_p.shape[1]
+    if terrain_idx is None or terrain.hf.ndim == 2:
+        terrain_idx = torch.zeros(n, dtype=torch.int32, device=dev)
+    fp, ip = step_params(params, sim_steps)
+    out = torch.empty_like(state_p)
+    contact = torch.empty((3 * model.num_bodies, n), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.parc_control_step_launch(
+            state_p.data_ptr(), const_p.data_ptr(), out.data_ptr(),
+            contact.data_ptr(), itab.data_ptr(), ftab.data_ptr(),
+            model.num_bodies, model.dof_size, npt, hf.data_ptr(),
+            min_point.data_ptr(), dxdy.data_ptr(), hf.shape[0], hf.shape[1],
+            hf.shape[2],
+            terrain_idx.data_ptr(), n, fp.ctypes.data, ip.ctypes.data,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"control_step kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out, contact
+
+
+def phase_cycles(model: cm.CharModel, params: engine.SimParams,
+                 terrain: terrain_lib.Terrain, state_p: torch.Tensor,
+                 const_p: torch.Tensor, terrain_idx: Optional[torch.Tensor],
+                 sim_steps: int) -> Dict[str, float]:
+    """Where one launch spends its time: one launch of the kernel built
+    with the phase clock (CUDA tensors only; not counted in
+    ``control_step_packed.launches``), as {stage: clock64 cycles of the
+    stage per substep, averaged over the blocks}, from each block's first
+    thread. The clock's atomics slow the launch by about a tenth."""
+    _check(model, params, terrain, state_p, const_p, terrain_idx, sim_steps)
+    if state_p.device.type != "cuda":
+        raise ValueError("the phase clock runs on the card only")
+    lib = library(PHASE_CLOCKS)
+    lib.parc_phase_cycles.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * lib.parc_phases())()
+    with torch.cuda.device(state_p.device):
+        torch.cuda.synchronize()
+        lib.parc_phase_cycles(buf)  # zero the clock
+        _launch(lib, model, params, terrain, state_p, const_p, terrain_idx,
+                sim_steps)
+        torch.cuda.synchronize()
+        rc = lib.parc_phase_cycles(buf)
+    if rc != 0:
+        raise RuntimeError(f"reading the phase clock failed: CUDA error {rc}")
+    per = lib.parc_control_step_blocks(state_p.shape[1], model.num_bodies)
+    per *= sim_steps * params.substeps
+    return {name: buf[i] / per for i, name in enumerate(PHASES)}
+
+
+def control_step_packed_reference(
+        model: cm.CharModel, params: engine.SimParams,
+        terrain: terrain_lib.Terrain, state_p: torch.Tensor,
+        const_p: torch.Tensor, terrain_idx: Optional[torch.Tensor],
+        sim_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain PyTorch version, same signature: every substep
+    runs engine.compute_contact_forces on the packed body rows, then
+    :func:`substep_reference`."""
+    n = state_p.shape[1]
+    J = model.num_bodies
+    h = params.dt / params.substeps
+    net_accum = None
+    for _ in range(sim_steps):
+        step_net = 0.0
+        for _ in range(params.substeps):
+            f_ext, net = engine.compute_contact_forces(
+                model, params, terrain, unpack_state(model, state_p),
+                terrain_idx)
+            step_net = step_net + net
+            fext_p = f_ext.reshape(n, 6 * J).t().contiguous()
+            state_p = substep_reference(model, params, h, state_p, fext_p,
+                                        const_p)
+        net_accum = step_net / params.substeps
+    return state_p, net_accum.reshape(n, 3 * J).t().contiguous()
 
 
 def substep_reference(model: cm.CharModel, params: engine.SimParams,
                       h: float, state_p: torch.Tensor, fext_p: torch.Tensor,
                       const_p: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version, same packed signature: unpack,
-    run engine.compute_joint_torques, engine.aba and engine.integrate
-    (which refreshes the kinematics), repack."""
-    lstate = state_layout(model)
+    """One substep in plain PyTorch on packed arrays (f_ext (6J, N): per
+    body (moment; force) at its origin): unpack, run
+    engine.compute_joint_torques, engine.aba and engine.integrate (which
+    refreshes the kinematics), repack."""
     lconst = const_layout(model)
     n = state_p.shape[1]
-    fields = {name: unpack(state_p, lstate, name) for name, _ in lstate.fields}
-    state = engine.SimState(contact_forces=torch.zeros_like(fields["body_pos"]),
-                            **fields)
+    state = unpack_state(model, state_p)
     act = unpack(const_p, lconst, "act")
     qtar = unpack(const_p, lconst, "qtar")
     f_ext = fext_p.t().reshape(n, model.num_bodies, 6)
@@ -214,4 +395,4 @@ def substep_reference(model: cm.CharModel, params: engine.SimParams,
                                                 q_tar=qtar)
     root_acc, qdd = engine.aba(model, params, state, tau, d_extra, f_ext)
     state = engine.integrate(model, state, root_acc, qdd, h)
-    return pack(lstate, vars(state), n)
+    return pack(state_layout(model), vars(state), n)

@@ -1,5 +1,5 @@
-"""parc_torch.physics.engine (+ the substep plain version and its packed
-driver) against parc_tpu.physics.engine on the CPU.
+"""parc_torch.physics.engine (+ the control-step kernel's plain version
+and its packed wrapper) against parc_tpu.physics.engine on the CPU.
 
 The JAX side runs the XLA path the CPU takes (aba_level_parallel, batched
 FK); each reference is jitted once. Tolerances:
@@ -15,6 +15,8 @@ FK); each reference is jitted once. Tolerances:
 * ABA accelerations rtol 1e-4 / atol 1e-3 (tests/test_physics.py pins
   the JAX package's two ABA forms to each other at this tolerance).
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -221,8 +223,9 @@ def test_control_step(models, standing, terrains):
 
 
 def test_substep_reference_matches_sim_step(models, standing, terrains):
-    """One substep of the plain version (packed signature) == one
-    substep of the JAX sim_step (substeps=1, dt=h)."""
+    """One substep of the kernel's plain version (contact, then the
+    substep, on packed arrays) == one substep of the JAX sim_step
+    (substeps=1, dt=h)."""
     jm, tm = models
     arrs, js, ts = standing
     jts, tts, tidx = terrains
@@ -231,41 +234,83 @@ def test_substep_reference_matches_sim_step(models, standing, terrains):
         jm, jp, jts, s, a, terrain_idx=t))(
             js, jnp.asarray(arrs["act"]), jnp.asarray(tidx, jnp.int32))
     tp = te.SimParams(dt=H, substeps=1)
-    f_ext, _ = te.compute_contact_forces(tm, tp, tts, ts, torch.as_tensor(tidx))
     ls, lc = tsub.state_layout(tm), tsub.const_layout(tm)
     act = torch.as_tensor(arrs["act"])
     state_p = tsub.pack(ls, vars(ts), N)
     const_p = tsub.pack(lc, {"act": act, "qtar": tcm.dof_to_rot(tm, act)}, N)
-    fext_p = f_ext.reshape(N, -1).t().contiguous()
-    out = tsub.substep_reference(tm, tp, H, state_p, fext_p, const_p)
+    args = (tm, tp, tts, state_p, const_p,
+            torch.as_tensor(tidx, dtype=torch.int32), 1)
+    out, contact = tsub.control_step_packed_reference(*args)
     for f, _ in ls.fields:
         _close(tsub.unpack(out, ls, f), getattr(want, f), 2e-4, msg=f)
+    _close(contact.t().reshape(N, -1, 3), want.contact_forces, 2e-3, 1e-5)
     # the CPU wrapper runs the same plain version, and counts no launch
-    before = tsub.substep.launches
-    out2 = tsub.substep(tm, tp, H, state_p, fext_p, const_p)
-    assert torch.equal(out, out2) and tsub.substep.launches == before
+    before = tsub.control_step_packed.launches
+    out2, contact2 = tsub.control_step_packed(*args)
+    assert torch.equal(out, out2) and torch.equal(contact, contact2)
+    assert tsub.control_step_packed.launches == before
 
 
-def test_substep_wrapper_rejects_bad_inputs(models, nominal):
+def test_control_step_packed_reference_matches_jax(models, standing,
+                                                   terrains):
+    """A whole control step (2 sim steps x 2 substeps) of the kernel's
+    plain version on packed arrays == the JAX control_step."""
+    jm, tm = models
+    arrs, js, ts = standing
+    jts, tts, tidx = terrains
+    want = jax.jit(lambda s, a, t: je.control_step(
+        jm, je.SimParams(), jts, s, a, terrain_idx=t))(
+            js, jnp.asarray(arrs["act"]), jnp.asarray(tidx, jnp.int32))
+    ls, lc = tsub.state_layout(tm), tsub.const_layout(tm)
+    act = torch.as_tensor(arrs["act"])
+    out, contact = tsub.control_step_packed_reference(
+        tm, te.SimParams(), tts, tsub.pack(ls, vars(ts), N),
+        tsub.pack(lc, {"act": act, "qtar": tcm.dof_to_rot(tm, act)}, N),
+        torch.as_tensor(tidx, dtype=torch.int32), 2)
+    for f, _ in ls.fields:
+        _close(tsub.unpack(out, ls, f), getattr(want, f), 2e-4, msg=f)
+    assert float(contact.abs().max()) > 50.0
+    _close(contact.t().reshape(N, -1, 3), want.contact_forces, 2e-3, 1e-5)
+
+
+def test_substep_wrapper_rejects_bad_inputs(models, nominal, terrains):
+    """control_step_packed raises on a bad dtype, shape, layout, control
+    mode, step count or device."""
     _, tm = models
     _, _, ts = nominal
+    _, tts, tidx = terrains
     ls, lc = tsub.state_layout(tm), tsub.const_layout(tm)
     state_p = tsub.pack(ls, vars(ts), N)
-    fext_p = torch.zeros(6 * tm.num_bodies, N)
     const_p = torch.zeros(lc.total, N)
+    tidx = torch.as_tensor(tidx, dtype=torch.int32)
     p = te.SimParams()
+
+    def call(state=state_p, const=const_p, idx=tidx, params=p, steps=2,
+             terrain=tts):
+        return tsub.control_step_packed(tm, params, terrain, state, const,
+                                        idx, steps)
     with pytest.raises(TypeError):
-        tsub.substep(tm, p, H, state_p.double(), fext_p, const_p)
+        call(state=state_p.double())
+    with pytest.raises(TypeError):
+        call(idx=tidx.long())
     with pytest.raises(ValueError):
-        tsub.substep(tm, p, H, state_p[:, :4], fext_p, const_p)
+        call(state=state_p[:, :4])
     with pytest.raises(ValueError):
-        tsub.substep(tm, p, H, state_p, fext_p.t().contiguous().t(), const_p)
+        call(const=const_p.t().contiguous().t())
     with pytest.raises(ValueError):
-        tsub.substep(tm, te.SimParams(control_mode="nope"), H, state_p,
-                     fext_p, const_p)
+        call(idx=tidx[:4])
     with pytest.raises(ValueError):
-        tsub.substep(tm, p, H, state_p.to("meta"), fext_p.to("meta"),
-                     const_p.to("meta"))
+        call(idx=None)  # a stacked terrain needs an index per env
+    with pytest.raises(ValueError):
+        call(params=te.SimParams(control_mode="nope"))
+    with pytest.raises(ValueError):
+        call(steps=0)
+    with pytest.raises(ValueError):
+        call(state=state_p.to("meta"), const=const_p.to("meta"),
+             idx=tidx.to("meta"), terrain=dataclasses.replace(
+                 tts, hf=tts.hf.to("meta"),
+                 min_point=tts.min_point.to("meta"),
+                 dxdy=tts.dxdy.to("meta")))
 
 
 def test_layout_pack_roundtrip(models, nominal):
