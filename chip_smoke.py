@@ -30,21 +30,46 @@ Phases, each printing one line of facts:
    max); the parts of a control step timed alone, and the device's busy
    time in a profiler trace of one; one control step from the rollout's
    last state through the kernel and through the plain version must agree
-   as in phase 3.
+   as in phase 3;
+5. training through the CLI at full width: the 3 bench clips written as
+   .npz under build/, ``create_dataset`` over them (terrain masks
+   precomputed on the card), ``train_tracker`` at 4096 envs with
+   PPOConfig() (3x2048 bf16 trunks, 32 steps an iteration, 5 epochs of 8
+   minibatches of 16,384) for 3 iterations, its deterministic test rollout
+   once (iteration 1, 300 steps at most, 16 episodes). Per iteration: the
+   wall time, samples/s, the rollout and update halves; the test rollout's
+   steps and time; the last iteration's losses. The kernel must have been
+   launched 32 times in each train_iter and once per test step; losses and
+   parameters finite; the parameters moved; 3 x 32 x 4096 samples counted
+   by the agent and by the normalizer; a checkpoint at step 3;
+6. ``record`` from that checkpoint into one env per clip (any num_envs
+   restores) and ``eval --diagnostics`` at 64 envs, through the CLI: the
+   recorded clips (0 of 3 is expected of 3 iterations of training) are
+   finite and 34-D, and every step launched the kernel once; then, from
+   the record stage's env (3 envs: part of one block, the kernel's tail
+   code) and the eval stage's (64 envs), each restored and stepped 10
+   times, one control step through the kernel and the plain version must
+   agree as in phase 3.
 The line before the last holds the kernel report as JSON; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 before that line; without CUDA the script exits non-zero and runs nothing.
 """
 
+import csv
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
+import yaml
 
 from parc_torch.anim import char_model as cm
+from parc_torch.anim import motion_data as md
 from parc_torch.anim import motion_lib as ml
 from parc_torch.data.humanoid import humanoid_spec
 from parc_torch.data.synthetic import standing_clip, walking_clip
@@ -53,9 +78,17 @@ from parc_torch.envs.deepmimic import DeepMimicEnv
 from parc_torch.learning.ppo import PPOAgent, PPOConfig
 from parc_torch.physics import engine
 from parc_torch.physics import substep as sub
+from parc_torch.pipeline import cli
+from parc_torch.pipeline import record, train_tracker
+from parc_torch.utils import checkpoint as ckpt_lib
+from parc_torch.utils import profiling
 from parc_torch.utils.terrain import Terrain
 
 NUM_ENVS = 4096
+TRAIN_ITERS = 3  # phase 5; the test rollout runs once, at iteration 1
+EVAL_ENVS = 64   # phase 6
+SETTLE = 10      # phase 6: control steps before the kernel-vs-plain step
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 ROLLOUT_STEPS = 64
 ROLLOUT_RUNS = 5  # 64-step runs timed; the first is the counted main path
 ATOL = 2e-4  # tests/test_pallas.py:190-193
@@ -399,19 +432,34 @@ def rollout(model, lib, device):
         }
         busy = device_busy_ms(lambda: step(es, counts), 5)
 
-        # one control step from the same start state: kernel, plain f32,
-        # and plain float64 (the yardstick of what f32 can hold here)
-        got = engine.control_step(model, env.sim_params, terrain, es.sim,
-                                  action, terrain_idx=es.motion_ids)
-        plain = engine.control_step(model, env.sim_params, terrain, es.sim,
-                                    action, terrain_idx=es.motion_ids,
-                                    step_fn=sub.control_step_packed_reference)
-        sim64 = engine.SimState(**{k: v.double() for k, v in vars(es.sim).items()})
-        plain64 = engine.control_step(as_f64(model), env.sim_params,
-                                      terrain_f64(terrain), sim64,
-                                      action.double(),
-                                      terrain_idx=es.motion_ids,
-                                      step_fn=sub.control_step_packed_reference)
+    rates = sorted(NUM_ENVS * ROLLOUT_STEPS / w for w in walls)
+    step_ms = 1e3 * wall / ROLLOUT_STEPS
+    return dict(launches=launches, wall_s=wall, setup_s=setup_s,
+                env_steps_per_s=NUM_ENVS * ROLLOUT_STEPS / wall,
+                rate_min=rates[0], rate_max=rates[-1], step_ms=step_ms,
+                busy_ms=busy, mean_reward=mean_reward, dones=dones,
+                **step_vs_plain(model, env, lib, es, action), **parts)
+
+
+@torch.no_grad()
+def step_vs_plain(model, env, lib, es, action):
+    """One control step of env from es: kernel, plain f32, and plain
+    float64 (the yardstick of what f32 can hold here); the errors, for
+    judge()."""
+    terrain = lib_terrain(lib)
+    kw = dict(terrain_idx=es.motion_ids,
+              sim_steps=env.cfg.sim_steps_per_control)
+    got = engine.control_step(model, env.sim_params, terrain, es.sim,
+                              action, **kw)
+    plain = engine.control_step(model, env.sim_params, terrain, es.sim,
+                                action, step_fn=sub.control_step_packed_reference,
+                                **kw)
+    sim64 = engine.SimState(**{k: v.double() for k, v in vars(es.sim).items()})
+    plain64 = engine.control_step(as_f64(model), env.sim_params,
+                                  terrain_f64(terrain), sim64,
+                                  action.double(),
+                                  step_fn=sub.control_step_packed_reference,
+                                  **kw)
 
     def err(a, b):
         return {"state": max((getattr(a, f).double() - getattr(b, f).double())
@@ -424,14 +472,230 @@ def rollout(model, lib, device):
     plain64_err, kernel64_err = err(plain, plain64), err(got, plain64)
     step_err.update({f"plain_vs_f64_{k}": v for k, v in plain64_err.items()})
     step_err.update({f"kernel_vs_f64_{k}": v for k, v in kernel64_err.items()})
-    rates = sorted(NUM_ENVS * ROLLOUT_STEPS / w for w in walls)
-    step_ms = 1e3 * wall / ROLLOUT_STEPS
-    return dict(launches=launches, wall_s=wall, setup_s=setup_s,
-                env_steps_per_s=NUM_ENVS * ROLLOUT_STEPS / wall,
-                rate_min=rates[0], rate_max=rates[-1], step_ms=step_ms,
-                busy_ms=busy, mean_reward=mean_reward, step_err=step_err,
-                plain64_err=plain64_err, kernel64_err=kernel64_err,
-                dones=dones, **parts)
+    return dict(step_err=step_err, plain64_err=plain64_err,
+                kernel64_err=kernel64_err,
+                max_contact=got.contact_forces.abs().max().item())
+
+
+def judge_step(r, what):
+    """judge() on step_vs_plain's errors."""
+    e = r["step_err"]
+    return judge(max(e[f] for f in STATE_CHECK), e["contact_forces"],
+                 r["plain64_err"], r["kernel64_err"], what)
+
+
+@torch.no_grad()
+def stage_state_check(dataset, tracker, device, num_envs, record_env):
+    """Phase 6's kernel check: the env that the record stage (one env per
+    clip, rand_reset off, reset to each clip's start) or the eval stage
+    (num_envs, the test rollout's reset) builds, restored from the
+    tracker's checkpoint, stepped SETTLE steps with the deterministic
+    actor; then one control step from there through the kernel and the
+    plain version."""
+    model = humanoid_spec().build(device=device)
+    lib = ml.load_motion_lib(model, dataset_files(dataset), device=device)
+    cfg = {"tracker_dir": tracker}
+    g = torch.Generator(device=device).manual_seed(0)
+    if record_env:
+        env = cli._build_env(model, cfg, device, num_envs=lib.num_motions,
+                             rand_reset=False)
+        agent, state = cli._restored_agent(cfg, lib, env, seed=0)
+        es = env.reset(lib, g, num_envs=lib.num_motions,
+                       motion_ids=torch.arange(lib.num_motions, device=device),
+                       start_times=torch.zeros(lib.num_motions, device=device))
+    else:
+        env = cli._build_env(model, cfg, device, num_envs=num_envs)
+        agent, state = cli._restored_agent(cfg, lib, env, seed=0)
+        es = env.reset(lib, g, num_envs=num_envs)
+    for _ in range(SETTLE):
+        es = env.step(lib, es, agent.act(state, es.obs), generator=g)
+    r = step_vs_plain(model, env, lib, es, agent.act(state, es.obs))
+    r["envs"] = es.obs.shape[0]
+    return r
+
+
+def bench_clips():
+    """The bench motion set: a standing clip and two walks."""
+    return [standing_clip(), walking_clip(seed=1), walking_clip(seed=2)]
+
+
+def train(device):
+    """Phase 5: create_dataset and train_tracker through the CLI, at full
+    width. Each train_iter and the trainer's test rollout are wrapped to
+    count the kernel's launches, time them, and keep the metrics; the
+    wrappers are taken off before returning."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    motions = WORK / "motions" / "bench"
+    for name, clip in zip(("stand", "walk1", "walk2"), bench_clips()):
+        md.save_motion_data(str(motions / f"{name}.npz"), clip)
+    dataset = str(WORK / "dataset.yaml")
+    tracker = WORK / "tracker"
+    t0 = time.perf_counter()
+    cli.main(["create_dataset", "--motions_dir", str(motions.parent),
+              "--out", dataset, "--device", device.type])
+    dataset_s = time.perf_counter() - t0
+    for f in dataset_files(dataset):
+        clip = md.load_motion_data(f)
+        if clip.terrain.hf_mask is None or clip.hf_mask_inds is None:
+            raise AssertionError(f"create_dataset wrote no masks into {f}")
+
+    iters, tests, start = [], [], {}
+    train_iter, make_test_fn = PPOAgent.train_iter, train_tracker.make_test_fn
+
+    def counted_iter(agent, lib, state, timer=None):
+        if not start:
+            start.update({k: p.detach().clone()
+                          for k, p in agent.net.named_parameters()})
+        before = dict(timer.summary()) if timer is not None else {}
+        n0, t = sub.control_step_packed.launches, time.perf_counter()
+        out = train_iter(agent, lib, state, timer=timer)
+        profiling.sync(device)
+        wall = time.perf_counter() - t
+        after = timer.summary() if timer is not None else {}
+        ms = {k: 1e3 * (after[k]["total_s"]
+                        - before.get(k, {"total_s": 0.0})["total_s"])
+              for k in ("rollout", "update") if k in after}
+        iters.append(dict(launches=sub.control_step_packed.launches - n0,
+                          wall_s=wall, metrics=out[1], agent=agent, **ms))
+        return out
+
+    def counted_test_fn(agent, *args, **kwargs):
+        fn = make_test_fn(agent, *args, **kwargs)
+
+        def run(lib, state, generator):
+            n0, t = sub.control_step_packed.launches, time.perf_counter()
+            out = fn(lib, state, generator)
+            profiling.sync(device)
+            tests.append(dict(launches=sub.control_step_packed.launches - n0,
+                              wall_s=time.perf_counter() - t,
+                              steps=int(out["test_steps"])))
+            return out
+        return run
+
+    PPOAgent.train_iter = counted_iter
+    train_tracker.make_test_fn = counted_test_fn
+    try:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        sub.control_step_packed.launches = 0
+        t0 = time.perf_counter()
+        state = cli.main(["train_tracker", "--dataset", dataset, "--out_dir",
+                          str(tracker), "--num_envs", str(NUM_ENVS),
+                          "--max_iters", str(TRAIN_ITERS), "--device",
+                          device.type])
+        profiling.sync(device)
+        train_s = time.perf_counter() - t0
+        launches = sub.control_step_packed.launches
+        peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
+                   if device.type == "cuda" else float("nan"))
+    finally:
+        PPOAgent.train_iter = train_iter
+        train_tracker.make_test_fn = make_test_fn
+
+    steps = PPOConfig().steps_per_iter
+    samples = TRAIN_ITERS * steps * NUM_ENVS
+    if [it["launches"] for it in iters] != [steps] * TRAIN_ITERS:
+        raise AssertionError(f"control-step launches per train_iter "
+                             f"{[it['launches'] for it in iters]}, expected "
+                             f"{steps} each")
+    if len(tests) != 1 or tests[0]["launches"] != tests[0]["steps"]:
+        raise AssertionError(f"test rollouts {tests}: expected one, with one "
+                             f"launch per step")
+    if launches != samples // NUM_ENVS + tests[0]["steps"]:
+        raise AssertionError(f"{launches} launches in the whole run")
+    agent = iters[-1]["agent"]
+    for i, it in enumerate(iters):
+        m = it["metrics"]
+        for name in ("actor_loss", "critic_loss", "bound_loss", "mean_reward"):
+            if not torch.isfinite(getattr(m, name)).all():
+                raise AssertionError(f"iteration {i + 1}: {name} not finite")
+    moved = {}
+    for k, p in agent.net.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"parameter {k} is not finite")
+        moved[k] = (p.detach() - start[k]).abs().max().item()
+    if min(moved.values()) <= 0.0:
+        raise AssertionError(f"parameters did not move: {moved}")
+    if float(state.sample_count) != samples:
+        raise AssertionError(f"sample_count {float(state.sample_count)}, "
+                             f"expected {samples}")
+    if float(state.obs_norm.count) != samples:
+        raise AssertionError(f"normalizer count {float(state.obs_norm.count)}"
+                             f", expected {samples}")
+    if ckpt_lib.all_steps(str(tracker / "checkpoints")) != [TRAIN_ITERS]:
+        raise AssertionError("no checkpoint at step "
+                             f"{TRAIN_ITERS} in {tracker / 'checkpoints'}")
+    return dict(iters=iters, test=tests[0], launches=launches,
+                dataset=dataset, tracker=str(tracker), dataset_s=dataset_s,
+                train_s=train_s, obs_dim=agent.env.obs_dim,
+                log_rate=log_samples_per_sec(tracker), moved=moved,
+                peak_gb=peak_gb)
+
+
+def dataset_files(dataset):
+    """The clip files a dataset manifest lists."""
+    with open(dataset) as f:
+        return [e["file"] for e in yaml.safe_load(f)["motions"]]
+
+
+def log_samples_per_sec(tracker):
+    """Samples_Per_Sec of the trainer's log.tsv (its output iterations)."""
+    with open(tracker / "log.tsv") as f:
+        return [float(r["Samples_Per_Sec"])
+                for r in csv.DictReader(f, delimiter="\t")]
+
+
+def record_and_eval(t, device):
+    """Phase 6: record (one env per clip, restored from phase 5's
+    checkpoint) and eval --diagnostics, through the CLI."""
+    sub.control_step_packed.launches = 0
+    t0 = time.perf_counter()
+    results = cli.main(["record", "--dataset", t["dataset"], "--tracker_dir",
+                        t["tracker"], "--out_dir", str(WORK / "recorded"),
+                        "--device", device.type])
+    profiling.sync(device)
+    record_s = time.perf_counter() - t0
+    record_launches = sub.control_step_packed.launches
+    clips = [c for c in results if c is not None]
+    for c in clips:
+        if c.frames.ndim != 2 or c.frames.shape[1] != 34:
+            raise AssertionError(f"recorded frames {c.frames.shape}, not "
+                                 f"(T, 34)")
+        if not (np.isfinite(c.frames).all() and np.isfinite(c.contacts).all()):
+            raise AssertionError("recorded clip not finite")
+    lib = ml.load_motion_lib(humanoid_spec().build(),
+                             dataset_files(t["dataset"]), device="cpu")
+    per_round = record.round_steps(lib, record.RecordConfig().max_steps)
+    if record_launches % per_round != 0 or record_launches == 0:
+        raise AssertionError(f"record launched the kernel {record_launches} "
+                             f"times, not a whole number of {per_round}-step "
+                             f"rounds")
+    sub.control_step_packed.launches = 0
+    t0 = time.perf_counter()
+    test, report = cli.main(["eval", "--dataset", t["dataset"],
+                             "--tracker_dir", t["tracker"], "--num_envs",
+                             str(EVAL_ENVS), "--diagnostics", "--device",
+                             device.type])
+    profiling.sync(device)
+    eval_s = time.perf_counter() - t0
+    eval_launches = sub.control_step_packed.launches
+    if eval_launches != int(test["test_steps"]):
+        raise AssertionError(f"eval: {eval_launches} launches over "
+                             f"{int(test['test_steps'])} steps")
+    if not all(torch.isfinite(v).all() for v in test.values()):
+        raise AssertionError("eval statistics not finite")
+    # the kernel against the plain version at both stages' env counts
+    # (3 envs fill part of one block: the kernel's tail code); these
+    # launches come after the stages' counts were read
+    checks = [stage_state_check(t["dataset"], t["tracker"], device, n, rec)
+              for n, rec in ((None, True), (EVAL_ENVS, False))]
+    for c, what in zip(checks, ("record", "eval")):
+        c["tol"] = judge_step(c, f"phase 6 {what} control step")
+    return dict(recorded=len(clips), motions=len(results), record_s=record_s,
+                record_launches=record_launches, per_round=per_round,
+                eval_s=eval_s, eval_launches=eval_launches,
+                eval_steps=int(test["test_steps"]),
+                layers=len(report["weights"]), checks=checks)
 
 
 def main():
@@ -506,9 +770,44 @@ def main():
           f"vs plain control step "
           + ", ".join(f"{f} {v:.1e}" for f, v in r["step_err"].items())
           + f" | {smi}")
-    e = r["step_err"]
-    judge(max(e[f] for f in STATE_CHECK), e["contact_forces"],
-          r["plain64_err"], r["kernel64_err"], "phase 4 control step")
+    judge_step(r, "phase 4 control step")
+
+    t = train(device)
+    for i, it in enumerate(t["iters"]):
+        print(f"phase 5: iteration {i + 1}: {it['wall_s']:.3f} s, "
+              f"{PPOConfig().steps_per_iter * NUM_ENVS / it['wall_s']:.1f} "
+              f"samples/s (rollout {it.get('rollout', float('nan')):.1f} ms, "
+              f"update {it.get('update', float('nan')):.1f} ms), "
+              f"control-step launches {it['launches']} | {smi}")
+    m = t["iters"][-1]["metrics"]
+    print(f"phase 5: train_tracker through the CLI: {NUM_ENVS} envs x "
+          f"{TRAIN_ITERS} iterations of PPOConfig() (obs dim {t['obs_dim']}, "
+          f"3x2048 bf16 trunks), {t['train_s']:.1f} s in all, dataset "
+          f"{t['dataset_s']:.1f} s; the log's Samples_Per_Sec "
+          f"{', '.join(f'{r:.1f}' for r in t['log_rate'])}; test rollout "
+          f"{t['test']['steps']} steps in {t['test']['wall_s']:.2f} s "
+          f"({t['test']['launches']} launches); last iteration: actor "
+          f"{m.actor_loss.item():.4g}, critic {m.critic_loss.item():.4g}, "
+          f"bound {m.bound_loss.item():.4g}, clip frac "
+          f"{m.clip_frac.item():.4g}, mean reward {m.mean_reward.item():.4f}; "
+          f"largest parameter move {max(t['moved'].values()):.3e}, smallest "
+          f"{min(t['moved'].values()):.3e}; {t['launches']} launches; peak "
+          f"device memory {t['peak_gb']:.2f} GB; checkpoint at step "
+          f"{TRAIN_ITERS} | {smi}")
+    r6 = record_and_eval(t, device)
+    print(f"phase 6: record from the step-{TRAIN_ITERS} checkpoint: recorded "
+          f"{r6['recorded']}/{r6['motions']} in {r6['record_s']:.1f} s, "
+          f"{r6['record_launches']} steps ({r6['record_launches'] // r6['per_round']}"
+          f" rounds of {r6['per_round']}); eval --diagnostics at {EVAL_ENVS} "
+          f"envs: {r6['eval_steps']} steps in {r6['eval_s']:.1f} s, "
+          f"{r6['eval_launches']} launches, {r6['layers']} layers reported "
+          f"| {smi}")
+    for c, what in zip(r6["checks"], ("record", "eval")):
+        print(f"phase 6: {what} env ({c['envs']} envs, after {SETTLE} steps): "
+              f"kernel vs plain control step "
+              + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
+              + f" (tolerance state {c['tol'][0]:.1e}, contact "
+              f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N")
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -518,7 +817,11 @@ def main():
                     "(compute_contact_forces)",
         "launches": r["launches"], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": 1e3 * bound_s,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None,
+        "launches_by_path": {"rollout": r["launches"],
+                             "train_tracker": t["launches"],
+                             "record": r6["record_launches"],
+                             "eval": r6["eval_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Motion clip container + .npz IO (numpy only).
+"""Motion clip container + .npz IO (numpy; ``HostTerrain.to_device`` gives
+the torch terrain).
 
 A motion clip is (frames, contacts, fps, loop_mode, terrain, hf_mask_inds)
 where a frame is the 34-D vector [root_pos(3), root_rot exp-map(3),
@@ -13,6 +14,10 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+from parc_torch import resolve_device
+from parc_torch.utils import terrain as terrain_lib
 
 
 CLAMP, WRAP = "CLAMP", "WRAP"
@@ -28,6 +33,22 @@ class HostTerrain:
     dxdy: np.ndarray
     hf_mask: Optional[np.ndarray] = None
     hf_maxmin: Optional[np.ndarray] = None
+
+    def to_device(self, device="cuda"):
+        """The terrain as a ``utils.terrain.Terrain`` on ``device`` (no
+        mask: nothing protected; no bounds: +-3 m around each cell)."""
+        dev = resolve_device(device)
+        h = self.hf.astype(np.float32)
+        mask = (self.hf_mask if self.hf_mask is not None
+                else np.zeros_like(h, bool))
+        maxmin = (self.hf_maxmin if self.hf_maxmin is not None
+                  else np.stack([h + 3.0, h - 3.0], -1))
+
+        def t(x, dtype=np.float32):
+            return torch.as_tensor(np.asarray(x, dtype), device=dev)
+        return terrain_lib.Terrain(
+            hf=t(h), hf_mask=t(mask, bool), hf_maxmin=t(maxmin),
+            min_point=t(self.min_point[:2]), dxdy=t(self.dxdy[:2]))
 
 
 @dataclasses.dataclass

@@ -174,6 +174,14 @@ def build_motion_lib(model: cm.CharModel,
     )
 
 
+def load_motion_lib(model: cm.CharModel, files: Sequence[str],
+                    weights: Optional[Sequence[float]] = None,
+                    device="cuda") -> MotionLib:
+    """A MotionLib of the clips in ``files`` (``.npz``)."""
+    return build_motion_lib(
+        model, [md.load_motion_data(f) for f in files], weights, device)
+
+
 # ---------------------------------------------------------------------------
 # Sampling functions
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ identical state and compare them step for step.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -17,6 +17,7 @@ from parc_torch.anim import motion_lib as ml
 from parc_torch.envs.base import EnvState
 from parc_torch.envs.deepmimic import ResetPool
 from parc_torch.learning import normalizer as norm_lib
+from parc_torch.learning import ppo
 from parc_torch.learning.networks import ActorCritic, _NET_REGISTRY
 from parc_torch.physics import engine
 
@@ -43,11 +44,30 @@ def _net_name(widths) -> str:
     raise ValueError(f"no registered net has widths {widths}")
 
 
-def _load_dense(layer: torch.nn.Linear, p) -> None:
-    # flax Dense kernel is (in, out); torch Linear weight is (out, in)
-    with torch.no_grad():
-        layer.weight.copy_(torch.as_tensor(np.asarray(p["kernel"]).T))
-        layer.bias.copy_(torch.as_tensor(np.asarray(p["bias"])))
+def flax_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A flax ActorCritic param tree (or a tree of the same structure,
+    such as optax's momentum ``trace``) as the port's ActorCritic
+    ``state_dict``: a trunk's ``Dense_i`` is its Linear ``2*i`` (Linear and
+    ReLU alternate), and each (in, out) kernel becomes an (out, in)
+    weight. The tree may hold its top-level ``"params"`` key or not."""
+    p = params.get("params", params)
+    out = {}
+
+    def dense(prefix, d):
+        out[f"{prefix}.weight"] = torch.as_tensor(
+            np.array(np.asarray(d["kernel"]).T, np.float32))
+        out[f"{prefix}.bias"] = torch.as_tensor(
+            np.array(d["bias"], np.float32))
+
+    for name, sub in p.items():
+        if name in ("actor_trunk", "critic_trunk"):
+            for i in range(len(sub)):
+                dense(f"{name}.{2 * i}", sub[f"Dense_{i}"])
+        elif name == "logstd":
+            out["logstd"] = torch.as_tensor(np.array(sub, np.float32))
+        else:
+            dense(name, sub)
+    return out
 
 
 def actor_critic_from_flax(params: dict, actor_std_type: str = "FIXED",
@@ -61,31 +81,62 @@ def actor_critic_from_flax(params: dict, actor_std_type: str = "FIXED",
     """
     p = params.get("params", params)
 
-    def trunk(name):
+    def widths(name):
         t = p[name]
-        return [t[f"Dense_{i}"] for i in range(len(t))]
+        return [np.asarray(t[f"Dense_{i}"]["kernel"]).shape[1]
+                for i in range(len(t))]
 
-    actor, critic = trunk("actor_trunk"), trunk("critic_trunk")
-    obs_dim = np.asarray(actor[0]["kernel"]).shape[0]
-    action_dim = np.asarray(p["actor_head"]["kernel"]).shape[1]
     net = ActorCritic(
-        obs_dim, action_dim,
-        actor_net=_net_name([np.asarray(d["kernel"]).shape[1] for d in actor]),
-        critic_net=_net_name([np.asarray(d["kernel"]).shape[1] for d in critic]),
+        np.asarray(p["actor_trunk"]["Dense_0"]["kernel"]).shape[0],
+        np.asarray(p["actor_head"]["kernel"]).shape[1],
+        actor_net=_net_name(widths("actor_trunk")),
+        critic_net=_net_name(widths("critic_trunk")),
         actor_std_type=actor_std_type, action_std=action_std)
-    for layers, trunk_mod in ((actor, net.actor_trunk),
-                              (critic, net.critic_trunk)):
-        linears = [m for m in trunk_mod if isinstance(m, torch.nn.Linear)]
-        for dense, lin in zip(layers, linears):
-            _load_dense(lin, dense)
-    _load_dense(net.actor_head, p["actor_head"])
-    _load_dense(net.critic_head, p["critic_head"])
-    if actor_std_type == "VARIABLE":
-        _load_dense(net.logstd_head, p["logstd_head"])
-    elif actor_std_type == "CONSTANT":
-        with torch.no_grad():
-            net.logstd.copy_(torch.as_tensor(np.asarray(p["logstd"])))
+    net.load_state_dict(flax_state_dict(p))
     return net.to(device)
+
+
+def _momentum_trace(opt_state):
+    """The ``trace`` tree of optax's TraceState inside an optax state (a
+    chain's nested tuples of named tuples)."""
+    if "trace" in getattr(opt_state, "_fields", ()):
+        return opt_state.trace
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _momentum_trace(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def persistent_from_numpy(tree) -> dict:
+    """The port's ``ppo.persistent_state`` dict (CPU tensors) from the JAX
+    package's ``ppo.persistent_state`` tree with numpy leaves: flax params,
+    optax's momentum ``trace`` (the SGD momentum buffers), the normalizer,
+    ``sample_count`` and ``fail_rates``."""
+    trace = _momentum_trace(_get(tree, "opt_state"))
+    if trace is None:
+        raise ValueError("the optax state holds no momentum trace")
+    norm = _get(tree, "obs_norm")
+    return {
+        "params": flax_state_dict(_get(tree, "params")),
+        "opt_state": {"momentum": flax_state_dict(trace)},
+        "obs_norm": {**{f: _tensor(f, _get(norm, f), "cpu")
+                        for f in ("mean", "var", "count", "norm_mask")},
+                     "clip": float(_get(norm, "clip")),
+                     "sample_limit": float(_get(norm, "sample_limit"))},
+        "sample_count": _tensor("sample_count", _get(tree, "sample_count"),
+                                "cpu"),
+        "fail_rates": _tensor("fail_rates", _get(tree, "fail_rates"), "cpu"),
+    }
+
+
+def agent_state_from_numpy(agent: ppo.PPOAgent, state: ppo.AgentState,
+                           tree) -> ppo.AgentState:
+    """``state`` (a fresh ``agent.init``) with the JAX ``persistent_state``
+    tree ``tree`` merged in: the parameters and momentum buffers are copied
+    into ``agent.net`` and ``state.optimizer``."""
+    return ppo.merge_persistent(agent, state, persistent_from_numpy(tree))
 
 
 def normalizer_from_numpy(state, device="cpu") -> norm_lib.NormalizerState:

@@ -1,1 +1,2 @@
-"""Policy networks, observation normalizer and the PPO agent."""
+"""Policy networks, observation normalizer, distributions, TD(lambda), the
+PPO agent and its training iteration, and network diagnostics."""

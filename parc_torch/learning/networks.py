@@ -4,6 +4,12 @@ Registry of MLP trunks; the tracker default is a 3x2048-unit ReLU MLP for
 both actor and critic. Initialization follows the JAX package's flax
 defaults: trunk and critic-head kernels LeCun-normal (truncated), biases
 zero, the actor head variance-scaled uniform with ``actor_init_output_scale``.
+
+A trunk may compute in bf16 (``compute_dtype``, by ``torch.autocast``
+scoped to the trunk): its input, weights and matmuls are cast to that type
+while the parameters stay f32, and its output returns to f32 before the
+heads, so the heads, the log-probs, the values and the losses stay f32. The
+PPO agent asks for bf16 on CUDA only.
 """
 
 from __future__ import annotations
@@ -46,22 +52,34 @@ def _dense(n_in: int, n_out: int, generator=None, device=None) -> nn.Linear:
 
 
 class MLP(nn.Sequential):
-    """Dense + ReLU trunk."""
+    """Dense + ReLU trunk; with ``compute_dtype`` its input, weights and
+    matmuls run in that type (the parameters stay f32)."""
 
     def __init__(self, in_dim: int, layers: Sequence[int], generator=None,
-                 device=None):
+                 device=None, compute_dtype: Optional[torch.dtype] = None):
         mods, d = [], in_dim
         for width in layers:
             mods += [_dense(d, width, generator, device), nn.ReLU()]
             d = width
         super().__init__(*mods)
         self.out_dim = d
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        # autocast scoped to the trunk: each Linear casts its input, weight
+        # and bias to compute_dtype (the f32 parameters are kept), and its
+        # output stays in that type
+        with torch.autocast(x.device.type, dtype=self.compute_dtype):
+            return super().forward(x)
 
 
-def build_net(name: str, in_dim: int, generator=None, device=None) -> MLP:
+def build_net(name: str, in_dim: int, generator=None, device=None,
+              compute_dtype: Optional[torch.dtype] = None) -> MLP:
     if name not in _NET_REGISTRY:
         raise KeyError(f"unknown net {name!r}; have {list(_NET_REGISTRY)}")
-    return MLP(in_dim, _NET_REGISTRY[name], generator, device)
+    return MLP(in_dim, _NET_REGISTRY[name], generator, device, compute_dtype)
 
 
 class ActorCritic(nn.Module):
@@ -69,7 +87,8 @@ class ActorCritic(nn.Module):
 
     FIXED uses a constant std; CONSTANT learns one log-std per action dim;
     VARIABLE predicts log-std per dim from the actor trunk. Weights are
-    drawn from ``generator``, which lives on ``device``.
+    drawn from ``generator``, which lives on ``device``. ``compute_dtype``
+    is the trunks' (None: f32).
     """
 
     def __init__(self, obs_dim: int, action_dim: int,
@@ -77,15 +96,18 @@ class ActorCritic(nn.Module):
                  critic_net: str = "fc_3layers_2048units",
                  actor_std_type: str = "FIXED", action_std: float = 0.05,
                  actor_init_output_scale: float = 0.01,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if actor_std_type not in STD_TYPES:
             raise ValueError(f"actor_std_type {actor_std_type!r} not in "
                              f"{STD_TYPES}")
         self.actor_std_type = actor_std_type
         self.action_std = action_std
-        self.actor_trunk = build_net(actor_net, obs_dim, generator, device)
-        self.critic_trunk = build_net(critic_net, obs_dim, generator, device)
+        self.actor_trunk = build_net(actor_net, obs_dim, generator, device,
+                                     compute_dtype)
+        self.critic_trunk = build_net(critic_net, obs_dim, generator, device,
+                                      compute_dtype)
         self.actor_head = nn.Linear(self.actor_trunk.out_dim, action_dim,
                                     device=device)
         self.critic_head = _dense(self.critic_trunk.out_dim, 1, generator,
@@ -105,7 +127,7 @@ class ActorCritic(nn.Module):
                 torch.full((action_dim,), math.log(action_std), device=device))
 
     def actor(self, obs: torch.Tensor):
-        h = self.actor_trunk(obs)
+        h = self.actor_trunk(obs).float()
         mean = self.actor_head(h)
         if self.actor_std_type == "FIXED":
             logstd = torch.full_like(mean, math.log(self.action_std))
@@ -116,7 +138,7 @@ class ActorCritic(nn.Module):
         return mean, logstd
 
     def critic(self, obs: torch.Tensor) -> torch.Tensor:
-        return self.critic_head(self.critic_trunk(obs))[..., 0]
+        return self.critic_head(self.critic_trunk(obs).float())[..., 0]
 
     def forward(self, obs: torch.Tensor):
         mean, logstd = self.actor(obs)

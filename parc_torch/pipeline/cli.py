@@ -1,0 +1,244 @@
+"""parc_torch pipeline CLI.
+
+Stages (those of the JAX package's CLI ported so far):
+
+    python -m parc_torch.pipeline.cli create_dataset --motions_dir D --out m.yaml
+    python -m parc_torch.pipeline.cli train_tracker --dataset m.yaml --out_dir T
+    python -m parc_torch.pipeline.cli record --dataset m.yaml --tracker_dir T
+    python -m parc_torch.pipeline.cli eval --dataset m.yaml --tracker_dir T
+
+Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
+the plain PyTorch versions on the CPU). Any flag can also come from a YAML
+file via --config (flags win). Reference parity: run.py:95-164, parc_1..5
+scripts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import typing
+
+import torch
+import yaml
+
+from parc_torch import resolve_device
+
+
+def _dataclass_from_dict(cls, d: dict):
+    """Build a (possibly nested) config dataclass from a flat YAML dict.
+
+    Nested dicts become nested dataclasses, and numeric strings are coerced
+    to the field's type: PyYAML parses ``1.0e9`` (exponent without a sign)
+    as a *string*, a silent trap for hand-written configs."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        t = hints.get(f.name)
+        if dataclasses.is_dataclass(t) and isinstance(v, dict):
+            v = _dataclass_from_dict(t, v)
+        elif t in (float, int) and isinstance(v, str):
+            v = t(float(v))
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def _load_config(args) -> dict:
+    cfg = {}
+    if args.config:
+        with open(args.config) as f:
+            cfg = yaml.safe_load(f) or {}
+    for k, v in vars(args).items():
+        if v is not None and k not in ("config", "stage"):
+            cfg[k] = v
+    return cfg
+
+
+def _device(cfg: dict) -> torch.device:
+    return resolve_device(cfg.get("device", "cuda"))
+
+
+def _build_model(device):
+    from parc_torch.data.humanoid import humanoid_spec
+    return humanoid_spec().build(device=device)
+
+
+def _build_env(model, cfg: dict, device, **overrides):
+    """The tracker env of ``cfg["env_name"]`` (default "deepmimic"); the
+    remaining keys fill EnvConfig / SimParams fields by name."""
+    from parc_torch.envs.base import EnvConfig
+    from parc_torch.envs.deepmimic import DeepMimicEnv
+    from parc_torch.physics import engine
+    name = cfg.get("env_name", "deepmimic")
+    if name in ("parkour", "mgdm"):
+        raise NotImplementedError(
+            f"env_name {name!r} is not ported yet: parc_torch trains the "
+            f"deepmimic env only (the parkour and mgdm envs need the MDM)")
+    if name != "deepmimic":
+        raise KeyError(f"unknown env_name {name!r}")
+    env_cfg = dataclasses.replace(_dataclass_from_dict(EnvConfig, cfg),
+                                  **overrides)
+    sim_params = _dataclass_from_dict(engine.SimParams, cfg.get("sim", cfg))
+    return DeepMimicEnv(model, sim_params, env_cfg, device=device)
+
+
+def stage_create_dataset(cfg: dict):
+    from parc_torch.pipeline import dataset
+    out = dataset.create_dataset_yaml(
+        cfg["motions_dir"], cfg.get("out", "output/motions.yaml"),
+        _dataclass_from_dict(dataset.DatasetConfig, cfg),
+        device=_device(cfg))
+    print(f"wrote {out}")
+
+
+def stage_train_tracker(cfg: dict):
+    """Tracker training (parc_3) on the dataset clips (``env_name:
+    deepmimic``)."""
+    from parc_torch.learning.ppo import PPOAgent, PPOConfig
+    from parc_torch.pipeline import dataset, train_tracker
+    dev = _device(cfg)
+    model = _build_model(dev)
+    lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
+    env = _build_env(model, cfg, dev)
+    agent = PPOAgent(env, _dataclass_from_dict(PPOConfig, cfg), device=dev)
+    tcfg = _dataclass_from_dict(train_tracker.TrainerConfig, cfg)
+    if cfg.get("out_dir"):
+        tcfg = dataclasses.replace(tcfg, output_dir=cfg["out_dir"])
+    return train_tracker.train(agent, lib, tcfg, seed=cfg.get("seed", 0),
+                               max_iters=cfg.get("max_iters"),
+                               meta=dataset.dataset_meta(cfg["dataset"]))
+
+
+def _select_checkpoint_step(cfg: dict):
+    """Resolve the ``checkpoint`` option for tracker-consuming stages:
+    'last' (default) / 'best' (highest logged Test_Reward in the retained
+    history: robust to late fail-rate-curriculum reward dips) / an int
+    step."""
+    which = cfg.get("checkpoint", "last")
+    if which in (None, "last"):
+        return None
+    if which == "best":
+        from parc_torch.pipeline import train_tracker
+        step = train_tracker.best_checkpoint_step(cfg["tracker_dir"])
+        print(f"checkpoint=best -> step {step}")
+        return step
+    return int(which)
+
+
+def _restored_agent(cfg: dict, lib, env, seed: int):
+    """A PPOAgent on ``env`` and its state, restored from the tracker's
+    checkpoint (any num_envs)."""
+    from parc_torch.learning import ppo as ppo_lib
+    from parc_torch.learning.ppo import PPOAgent, PPOConfig
+    from parc_torch.utils import checkpoint as ckpt_lib
+    dev = env.device
+    agent = PPOAgent(env, _dataclass_from_dict(PPOConfig, cfg), device=dev)
+    state = agent.init(lib, torch.Generator(device=dev).manual_seed(seed))
+    restored = ckpt_lib.restore(f"{cfg['tracker_dir']}/checkpoints",
+                                step=_select_checkpoint_step(cfg),
+                                map_location=dev)
+    return agent, ppo_lib.merge_persistent(agent, state, restored)
+
+
+def stage_record(cfg: dict):
+    from parc_torch.pipeline import dataset, record
+    dev = _device(cfg)
+    model = _build_model(dev)
+    lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
+    env = _build_env(model, cfg, dev, num_envs=lib.num_motions,
+                     rand_reset=False)
+    agent, state = _restored_agent(cfg, lib, env, seed=0)
+    rcfg = _dataclass_from_dict(record.RecordConfig, cfg)
+    results = record.record_motions(agent, lib, state, rcfg)
+    paths = record.save_recorded(results,
+                                 cfg.get("out_dir", "output/recorded"))
+    print(f"recorded {len(paths)}/{lib.num_motions} motions")
+    return results
+
+
+def stage_eval(cfg: dict):
+    """Deterministic-policy evaluation of a trained tracker + optional
+    network-health diagnostics (reference: run.py modes test/test2,
+    learning/dm_ppo_agent.py:162-219 test metrics and :607-773 test_model2
+    dormant-unit / stable-rank report)."""
+    from parc_torch.pipeline import dataset, train_tracker
+    from parc_torch.utils.logger import Logger
+    dev = _device(cfg)
+    seed = cfg.get("seed", 0)
+    model = _build_model(dev)
+    lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
+    env = _build_env(model, cfg, dev)
+    agent, state = _restored_agent(cfg, lib, env, seed=seed)
+    test_fn = train_tracker.make_test_fn(
+        agent, cfg.get("test_steps", 300),
+        test_episodes=cfg.get("test_episodes", 16))
+    test = test_fn(lib, state, torch.Generator(device=dev).manual_seed(seed))
+    print(f"test_reward      {float(test['mean_reward']):.4f}")
+    print(f"test_return      {float(test['mean_return']):.4f}")
+    print(f"episodes         {int(test['num_eps'])}"
+          f" (over {int(test['test_steps'])} steps)")
+    print(f"mean_ep_len      {float(test['mean_ep_len']):.3f} s")
+    print(f"fail_frac        {float(test['fail_frac']):.4f}")
+    comp = test["component_returns"].cpu().numpy()
+    for name, v in zip(train_tracker.REWARD_COMPONENT_NAMES, comp):
+        print(f"return_{name:<13s} {float(v):.4f}")
+    terr = test["tracking_error"].cpu().numpy()
+    for name, v in zip(train_tracker.TRACKING_ERROR_NAMES, terr):
+        print(f"{name:<16s} {float(v):.5f}")
+    train_tracker.log_fail_rate_tables(
+        Logger(), state.env_state.fail_rates.cpu().numpy(),
+        dataset.dataset_meta(cfg["dataset"]), top_k=10)
+    report = None
+    if cfg.get("diagnostics"):
+        from parc_torch.learning import diagnostics
+        report = diagnostics.full_report(agent, state, state.env_state.obs)
+        print("\nnetwork diagnostics (test2 parity):")
+        for layer, stats in report.items():
+            line = "  ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in stats.items())
+            print(f"  {layer}: {line}")
+    return test, report
+
+
+STAGES = {
+    "create_dataset": stage_create_dataset,
+    "train_tracker": stage_train_tracker,
+    "record": stage_record,
+    "eval": stage_eval,
+}
+
+
+def main(argv=None):
+    """Run one stage; returns what the stage returns (the trained state,
+    the recorded clips, the eval statistics), for callers in Python."""
+    p = argparse.ArgumentParser(prog="parc_torch.pipeline")
+    p.add_argument("stage", choices=sorted(STAGES))
+    p.add_argument("--config", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device of every stage (default cuda)")
+    p.add_argument("--dataset", default=None)
+    p.add_argument("--motions_dir", default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--out_dir", default=None)
+    p.add_argument("--tracker_dir", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="tracker checkpoint for record/eval: 'last' "
+                        "(default), 'best' (highest logged Test_Reward), "
+                        "or an int step")
+    p.add_argument("--num_envs", type=int, default=None)
+    p.add_argument("--max_iters", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--test_steps", type=int, default=None)
+    p.add_argument("--test_episodes", type=int, default=None)
+    p.add_argument("--diagnostics", action="store_true", default=None)
+    p.add_argument("--env_name", default=None,
+                   choices=["deepmimic", "parkour", "mgdm"])
+    args = p.parse_args(argv)
+    return STAGES[args.stage](_load_config(args))
+
+
+if __name__ == "__main__":
+    main()

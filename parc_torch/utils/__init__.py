@@ -1,1 +1,2 @@
-"""Rotation algebra and heightfield terrain."""
+"""Rotation algebra, heightfield terrain, checkpoints, logging and
+profiling."""

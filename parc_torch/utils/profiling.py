@@ -1,0 +1,110 @@
+"""Tracing / profiling utilities.
+
+* ``sync`` — wait for the device work behind a tensor or on a device
+  (``torch.cuda.synchronize``; nothing to wait for on the CPU).
+* ``PhaseTimer`` — named per-phase wall timers that synchronize the device
+  at the end of each phase, so a phase's time includes its device work.
+* ``trace`` — context manager around ``torch.profiler`` writing a Chrome
+  trace (open in Perfetto or chrome://tracing).
+* ``annotate`` — ``torch.profiler.record_function`` so host-side phases
+  show up as named ranges inside the trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import OrderedDict
+
+import torch
+
+
+def sync(x=None) -> None:
+    """Wait for the device: ``x`` is a tensor (its device), a device, or
+    None (nothing to wait for)."""
+    if x is None:
+        return
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class PhaseTimer:
+    """Accumulating named phase timers.
+
+    >>> pt = PhaseTimer()
+    >>> with pt.phase("rollout", sync_on=state.reward):
+    ...     state = step(state)
+    >>> pt.summary()   # {'rollout': {'total_s': ..., 'count': ..., ...}}
+    """
+
+    def __init__(self):
+        self._acc = OrderedDict()
+
+    @contextlib.contextmanager
+    def phase(self, name: str, sync_on=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync(sync_on)
+            dt = time.perf_counter() - t0
+            tot, cnt = self._acc.get(name, (0.0, 0))
+            self._acc[name] = (tot + dt, cnt + 1)
+
+    def summary(self) -> "OrderedDict[str, dict]":
+        out = OrderedDict()
+        for name, (tot, cnt) in self._acc.items():
+            out[name] = {"total_s": tot, "count": cnt,
+                         "mean_ms": 1e3 * tot / max(cnt, 1)}
+        return out
+
+    def report(self) -> str:
+        rows = [f"  {k:<24s} {v['mean_ms']:9.3f} ms x{v['count']:<6d} "
+                f"= {v['total_s']:8.3f} s"
+                for k, v in self.summary().items()]
+        return "\n".join(rows)
+
+    def reset(self):
+        self._acc.clear()
+
+
+def _activities():
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def start_trace() -> torch.profiler.profile:
+    """Start a ``torch.profiler`` trace of the host and, where there is
+    one, the GPU; end it with :func:`stop_trace`."""
+    prof = torch.profiler.profile(activities=_activities())
+    prof.start()
+    return prof
+
+
+def stop_trace(prof: torch.profiler.profile, log_dir: str) -> str:
+    """Stop ``prof`` and write its Chrome trace under ``log_dir``."""
+    prof.stop()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``with profiling.trace('/tmp/trace'): run()`` writes
+    ``/tmp/trace/trace.json``."""
+    prof = start_trace()
+    try:
+        yield prof
+    finally:
+        stop_trace(prof, log_dir)
+
+
+def annotate(name: str):
+    """Label a host-side region inside a trace."""
+    return torch.profiler.record_function(name)

@@ -245,19 +245,22 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [N, 3], ids=["full", "tail"])
 @pytest.mark.parametrize("mode", engine.CONTROL_MODES)
-def test_cuda_kernel_matches_plain(cuda, inputs, mode):
+def test_cuda_kernel_matches_plain(cuda, inputs, mode, n):
     """Contact + one substep on the card against the plain version, one
     launch per call, and two launches on the same input give the same
-    bits."""
+    bits. At n = 3 the envs fill part of one block, so the kernel's tail
+    code (repeated last env, no contact write-back past n) runs."""
     model, terrain, state_p, act, tidx = inputs
     model = model.to(cuda)
     terrain = dataclasses.replace(
         terrain, hf=terrain.hf.to(cuda), min_point=terrain.min_point.to(cuda),
         dxdy=terrain.dxdy.to(cuda))
     args = (model, engine.SimParams(control_mode=mode, dt=H, substeps=1),
-            terrain, state_p.to(cuda), _const(model, mode, act.to(cuda)),
-            tidx.to(cuda), 1)
+            terrain, state_p[:, :n].contiguous().to(cuda),
+            _const(model, mode, act[:n].to(cuda)),
+            tidx[:n].contiguous().to(cuda), 1)
     before = sub.control_step_packed.launches
     got = sub.control_step_packed(*args)
     again = sub.control_step_packed(*args)
