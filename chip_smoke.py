@@ -49,12 +49,30 @@ Phases, each printing one line of facts:
    the record stage's env (3 envs: part of one block, the kernel's tail
    code) and the eval stage's (64 envs), each restored and stepped 10
    times, one control step through the kernel and the plain version must
-   agree as in phase 3.
+   agree as in phase 3;
+7. the motion diffusion model at full width (MDMConfig(), bf16 encoder)
+   on phase 5's dataset: (a) ``train_mdm`` through the CLI, 4 epochs of 50
+   AdamW steps of 64 windows and a final checkpoint at epoch 4: each
+   epoch's seconds, windows/s and mean loss from the trainer's log, the
+   peak device memory; every loss and parameter finite; (b) the trained
+   denoiser on one 64-window batch: bf16 against f32 on the card (0 <
+   relative error < 2e-2, the encoder layers' outputs bf16, the output
+   f32), f32 on the card against the CPU (relative 1e-4), and the ms of
+   one call at 64 and 128 (the CFG pair) windows; (c) the epoch-4
+   checkpoint restored into a fresh MDM, then ``gen_mdm_motion`` on 64
+   windows (prev frames from the dataset's clips at seeded random times,
+   the clips' stacked terrains) three times: DDIM stride 5, with
+   classifier-free guidance 2.5, and with target + heightfield gradient
+   guidance; and ``ddpm_sample`` (1001 steps) once. Each run's seconds and
+   denoiser calls (201 for DDIM, 1001 for DDPM); frames (64, 15, 34)
+   finite, contacts (64, 15, 15) in {0, 1}. The MDM reaches no hand-written
+   kernel (the JAX package runs its denoiser outside Pallas too).
 The line before the last holds the kernel report as JSON; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 before that line; without CUDA the script exits non-zero and runs nothing.
 """
 
+import copy
 import csv
 import dataclasses
 import json
@@ -73,12 +91,18 @@ from parc_torch.anim import motion_data as md
 from parc_torch.anim import motion_lib as ml
 from parc_torch.data.humanoid import humanoid_spec
 from parc_torch.data.synthetic import standing_clip, walking_clip
+from parc_torch.diffusion import gen as gen_lib
+from parc_torch.diffusion import sampler as sampler_lib
+from parc_torch.diffusion import schedules
+from parc_torch.diffusion.guidance import GuidanceParams
+from parc_torch.diffusion.mdm import MDM, MDMConfig
 from parc_torch.envs.base import EnvConfig
 from parc_torch.envs.deepmimic import DeepMimicEnv
 from parc_torch.learning.ppo import PPOAgent, PPOConfig
 from parc_torch.physics import engine
 from parc_torch.physics import substep as sub
 from parc_torch.pipeline import cli
+from parc_torch.pipeline import dataset as dataset_lib
 from parc_torch.pipeline import record, train_tracker
 from parc_torch.utils import checkpoint as ckpt_lib
 from parc_torch.utils import profiling
@@ -102,6 +126,10 @@ STATE_CHECK = ("root_pos", "joint_rot", "dof_vel", "body_pos")
 MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
 F32_RATE = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_RATE = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+MDM_EPOCHS, MDM_ITERS = 4, 50  # phase 7a: 200 AdamW steps
+MDM_WINDOWS = 64  # phase 7: training batch and generated windows
+MDM_BF16_TOL, MDM_CPU_TOL = 2e-2, 1e-4  # phase 7b, relative max errors
 
 
 def nvidia_smi() -> str:
@@ -698,6 +726,238 @@ def record_and_eval(t, device):
                 layers=len(report["weights"]), checks=checks)
 
 
+def denoiser_flops(net, b):
+    """Operations (a multiply-add is 2) of one cached-condition denoiser
+    call on b windows: every Linear of the timestep MLP (1 token), the
+    frame and output MLPs (seq_len tokens) and the encoder layers (all
+    tokens), plus each layer's attention scores and weighted sums; the
+    condition tokens come from the cache."""
+    n = 1 + net.num_cond_tokens + net.seq_len
+
+    def linears(module, tokens):
+        return sum(2 * tokens * m.in_features * m.out_features
+                   for m in module.modules() if isinstance(m, torch.nn.Linear))
+
+    attention = 2 * 2 * n * n * net.d_model * len(net.layers)
+    return b * (linears(net.t_mlp, 1) + linears(net.in_mlp, net.seq_len)
+                + linears(net.out_mlp, net.seq_len)
+                + linears(net.layers, n) + attention)
+
+
+def train_mdm(t, device):
+    """Phase 7a: train_mdm through the CLI at full width on phase 5's
+    dataset."""
+    out = WORK / "mdm"
+    shutil.rmtree(out, ignore_errors=True)
+    config = WORK / "mdm.yaml"
+    config.write_text(yaml.safe_dump(dict(
+        iters_per_epoch=MDM_ITERS, epochs_per_output=1,
+        max_epochs=MDM_EPOCHS)))
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = cli.main(["train_mdm", "--dataset", t["dataset"], "--out_dir",
+                      str(out), "--config", str(config)])
+    profiling.sync(device)
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    with open(out / "log.tsv") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    losses = [float(r["Loss"]) for r in rows]
+    if len(rows) != MDM_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"train_mdm logged {len(rows)} epochs, losses "
+                             f"{losses}")
+    if state.step != MDM_EPOCHS * MDM_ITERS:
+        raise AssertionError(f"train_mdm took {state.step} steps")
+    for net in (state.net, state.ema_net):
+        for k, p in net.named_parameters():
+            if not torch.isfinite(p).all():
+                raise AssertionError(f"MDM parameter {k} is not finite")
+    if ckpt_lib.all_steps(str(out / "checkpoints")) != [MDM_EPOCHS]:
+        raise AssertionError(f"no MDM checkpoint at epoch {MDM_EPOCHS}")
+    return dict(state=state, rows=rows, train_s=train_s, peak_gb=peak_gb,
+                out=out)
+
+
+@torch.no_grad()
+def check_denoiser(mdm, state, batch, device):
+    """Phase 7b: the trained denoiser on one batch: bf16 against f32 on the
+    card, f32 on the card against the CPU, and its time per call."""
+    g = torch.Generator(device=device).manual_seed(3)
+    b = batch.frames.shape[0]
+    gt_std, prev_std = mdm._standardize(state, batch.frames,
+                                        batch.prev_states)
+    t_ = torch.randint(0, mdm.rates.num_timesteps, (b,), generator=g,
+                       device=device)
+    x_t = schedules.forward_diffusion(mdm.rates, gt_std, t_, torch.randn(
+        gt_std.shape, generator=g, device=device))
+    args = (x_t, t_, prev_std, batch.hf, batch.target_dir)
+    net16 = state.net
+    if net16.compute_dtype != torch.bfloat16:
+        raise AssertionError("the MDM's encoder does not run in bf16 on "
+                             "the card")
+    net32 = copy.deepcopy(net16)
+    net32.compute_dtype = None
+    dtypes = []
+    hooks = [layer.register_forward_hook(
+        lambda m, i, o: dtypes.append(o.dtype)) for layer in net16.layers]
+    y16 = net16(*args)
+    for h in hooks:
+        h.remove()
+    y32 = net32(*args)
+    if dtypes != [torch.bfloat16] * len(net16.layers) or \
+            y16.dtype != torch.float32:
+        raise AssertionError(f"encoder layer outputs {dtypes}, denoiser "
+                             f"output {y16.dtype}: not a bf16 stack")
+    bf16_err = ((y16 - y32).abs().max() / y32.abs().max()).item()
+    if not 0.0 < bf16_err < MDM_BF16_TOL:
+        raise AssertionError(f"bf16 denoiser vs f32: relative error "
+                             f"{bf16_err} outside (0, {MDM_BF16_TOL})")
+    cpu32 = copy.deepcopy(net32).cpu()
+    y_cpu = cpu32(*(a.cpu() for a in args))
+    cpu_err = ((y32.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    if not cpu_err <= MDM_CPU_TOL:
+        raise AssertionError(f"f32 denoiser on the card vs the CPU: "
+                             f"relative error {cpu_err}")
+    ones = torch.ones((b,), device=device)
+    cond = net16.encode_conditions(prev_std, batch.hf, batch.target_dir,
+                                   ones, ones, ones)
+    ms = {n: cuda_ms(lambda: net16(torch.cat([x_t] * k), torch.cat([t_] * k),
+                                   cond_toks=torch.cat([cond] * k)), 20)
+          for k, n in ((1, b), (2, 2 * b))}
+    return dict(bf16_err=bf16_err, cpu_err=cpu_err, ms=ms,
+                flops={n: denoiser_flops(net16, n) for n in ms})
+
+
+def serve_mdm(mdm, t7, lib, model, batch, device):
+    """Phase 7c: the epoch-4 checkpoint in a fresh MDM, gen_mdm_motion three
+    ways and ddpm_sample once, on MDM_WINDOWS windows."""
+    state = mdm.merge_persistent(
+        mdm.init(lib, torch.Generator(device=device).manual_seed(1),
+                 stats_samples=64),
+        ckpt_lib.restore(str(t7["out"] / "checkpoints"), map_location=device))
+    if state.step != MDM_EPOCHS * MDM_ITERS:
+        raise AssertionError(f"restored MDM at step {state.step}")
+    g = torch.Generator(device=device).manual_seed(7)
+    n, dt = MDM_WINDOWS, 1.0 / mdm.scfg.fps
+    ids = ml.sample_motions(lib, g, n)
+    times = ml.sample_time(lib, g, ids, truncate_time=1.0 + dt)
+    frames = ml.calc_motion_frame(
+        lib, ids[:, None].expand(n, 2),
+        times[:, None] + torch.tensor([0.0, dt], device=device))
+    prev34, contacts = ml.frames_34d(model, frames), frames.contacts
+    target = ml.calc_motion_frame(lib, ids, times + 1.0 + dt).root_pos[:, :2]
+    runs = {"DDIM": gen_lib.GenSettings(),
+            "DDIM, guidance scale 2.5":
+                gen_lib.GenSettings(guidance_scale=2.5),
+            "DDIM, target + hf guidance": gen_lib.GenSettings(
+                guidance=GuidanceParams(use_target=True, use_hf=True))}
+    steps = len(range(0, mdm.rates.num_timesteps, 5))
+    out = {}
+    for name, settings in runs.items():
+        mdm.denoise_calls = 0
+        t0 = time.perf_counter()
+        f34, con = gen_lib.gen_mdm_motion(
+            mdm, state, g, prev34, contacts, lib_terrain(lib), target,
+            settings, terrain_idx=ids)
+        profiling.sync(device)
+        out[name] = dict(s=time.perf_counter() - t0,
+                         calls=mdm.denoise_calls, expect=steps,
+                         frames=f34, contacts=con)
+    mdm.denoise_calls = 0
+    t0 = time.perf_counter()
+    feats = mdm.ddpm_sample(state, g, batch.prev_states, batch.hf,
+                            batch.target_dir)
+    profiling.sync(device)
+    f34, con = gen_lib.frames34_from_features(mdm, feats)
+    out["DDPM"] = dict(s=time.perf_counter() - t0, calls=mdm.denoise_calls,
+                       expect=mdm.rates.num_timesteps, frames=f34,
+                       contacts=torch.clamp(torch.round(con), 0.0, 1.0))
+    for name, r in out.items():
+        f34, con = r["frames"], r["contacts"]
+        if f34.shape != (n, mdm.scfg.seq_len, 34) or \
+                con.shape != (n, mdm.scfg.seq_len, model.num_bodies):
+            raise AssertionError(f"{name}: shapes {tuple(f34.shape)}, "
+                                 f"{tuple(con.shape)}")
+        if not torch.isfinite(f34).all():
+            raise AssertionError(f"{name}: frames not finite")
+        if not ((con == 0) | (con == 1)).all():
+            raise AssertionError(f"{name}: contacts not in {{0, 1}}")
+        if r["calls"] != r["expect"]:
+            raise AssertionError(f"{name}: {r['calls']} denoiser calls, "
+                                 f"expected {r['expect']}")
+        r["root_travel"] = (f34[:, -1, :2] - prev34[:, -1, :2]).norm(
+            dim=-1).mean().item() if name != "DDPM" else float("nan")
+    return out
+
+
+def mdm_phase(t, device, smi):
+    """Phase 7: the MDM at full width: train, check, serve."""
+    t7 = train_mdm(t, device)
+    for r in t7["rows"]:
+        rate = float(r["Samples_Per_Sec"])
+        print(f"phase 7a: epoch {int(float(r['Epoch'])) + 1}: "
+              f"{MDM_ITERS * MDMConfig().batch_size / rate:.3f} s, "
+              f"{rate:.1f} windows/s, mean loss {float(r['Loss']):.4f} "
+              f"| {smi}")
+    model = humanoid_spec().build(device=device)
+    lib = dataset_lib.load_dataset(model, t["dataset"], device=device)
+    mdm = MDM(model, MDMConfig(), device=device)
+    state = t7["state"]
+    nparams = sum(p.numel() for p in state.net.parameters())
+    print(f"phase 7a: train_mdm through the CLI: MDMConfig() ({nparams} "
+          f"parameters, bf16 encoder), {MDM_EPOCHS} epochs x {MDM_ITERS} "
+          f"steps x {MDMConfig().batch_size} windows in {t7['train_s']:.1f} "
+          f"s (exact feature stats included); peak device memory "
+          f"{t7['peak_gb']:.2f} GB; checkpoint at epoch {MDM_EPOCHS} "
+          f"| {smi}")
+    batch = sampler_lib.sample_batch(
+        model, mdm.scfg, lib, torch.Generator(device=device).manual_seed(2),
+        MDM_WINDOWS)
+    d = check_denoiser(mdm, state, batch, device)
+    share = {n: d["flops"][n] / BF16_RATE / (d["ms"][n] / 1e3)
+             for n in d["ms"]}
+    print(f"phase 7b: denoiser bf16 vs f32 on the card: relative max error "
+          f"{d['bf16_err']:.3e} (gate (0, {MDM_BF16_TOL})); f32 card vs CPU "
+          f"(TF32 off): {d['cpu_err']:.3e} (gate {MDM_CPU_TOL}); one call "
+          + ", ".join(f"{ms:.3f} ms at {n} windows ({d['flops'][n] / 1e9:.1f}"
+                      f" GFLOP, {share[n]:.3f} of the bf16 peak)"
+                      for n, ms in d["ms"].items())
+          + f" (CUDA events, 20 calls) | {smi}")
+    # where a training step's and a DDIM window's time goes: the host's
+    # wall clock of an unprofiled call (device_busy_ms's warm-up) against
+    # the device's busy time in a profiler trace of the next one
+    wall = {}
+
+    def timed(name, fn):
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.setdefault(name, time.perf_counter() - t0)
+        return run
+
+    g = torch.Generator(device=device).manual_seed(4)
+    step_busy = device_busy_ms(timed("train", lambda: [
+        mdm.train_step(lib, state) for _ in range(5)]), 1)
+    ddim_busy = device_busy_ms(timed("ddim", lambda: mdm.ddim_sample(
+        state, g, batch.prev_states, batch.hf, batch.target_dir)), 1)
+    for name, busy, n in (("train_step", step_busy, 5),
+                          ("ddim_sample (201 steps)", ddim_busy, 1)):
+        key = "train" if n == 5 else "ddim"
+        print(f"phase 7b: {name} on {MDM_WINDOWS} windows: "
+              f"{1e3 * wall[key] / n:.2f} ms wall, device busy "
+              + ("not measured (no device time in the trace)" if busy is None
+                 else f"{busy / n:.2f} ms, idle share "
+                 f"{1.0 - busy / (1e3 * wall[key]):.3f}") + f" | {smi}")
+    runs = serve_mdm(mdm, t7, lib, model, batch, device)
+    for name, r in runs.items():
+        print(f"phase 7c: {name}: {MDM_WINDOWS} windows in {r['s']:.3f} s, "
+              f"{r['calls']} denoiser calls ({1e3 * r['s'] / r['calls']:.2f} "
+              f"ms each), frames {tuple(r['frames'].shape)}, contacts "
+              f"{tuple(r['contacts'].shape)}, mean root travel "
+              f"{r['root_travel']:.3f} m | {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs only "
@@ -808,6 +1068,7 @@ def main():
               + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
               + f" (tolerance state {c['tol'][0]:.1e}, contact "
               f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N")
+    mdm_phase(t, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",

@@ -139,6 +139,95 @@ def agent_state_from_numpy(agent: ppo.PPOAgent, state: ppo.AgentState,
     return ppo.merge_persistent(agent, state, persistent_from_numpy(tree))
 
 
+def mdm_params_from_numpy(params) -> Dict[str, torch.Tensor]:
+    """A flax ``MDMTransformer`` param tree (or a tree of the same
+    structure, such as adam's ``mu`` and ``nu``) as the port's
+    ``MDMTransformer`` ``state_dict``. Layouts: a Dense (in, out) kernel
+    becomes an (out, in) weight; a Conv HWIO kernel an OIHW weight; an
+    attention q/k/v kernel (d, heads, head_dim) a (heads * head_dim, d)
+    weight and its (heads, head_dim) bias a flat one; the attention output
+    kernel (heads, head_dim, d) a (d, heads * head_dim) weight; a
+    LayerNorm's scale its weight. The tree may hold its top-level
+    ``"params"`` key or not."""
+    p = params.get("params", params)
+    out = {}
+
+    def put(name, x, fn=lambda a: a):
+        out[name] = torch.as_tensor(np.array(fn(np.asarray(x)), np.float32))
+
+    def dense(prefix, d):
+        put(f"{prefix}.weight", d["kernel"], lambda k: k.T)
+        put(f"{prefix}.bias", d["bias"])
+
+    def mlp(prefix, tree):
+        for i in range(len(tree)):
+            dense(f"{prefix}.dense.{i}", tree[f"Dense_{i}"])
+
+    for name in ("t_mlp", "target_mlp", "in_mlp", "out_mlp"):
+        mlp(name, p[name])
+    tok = p["hf_tokenizer"]
+    for i in range(4):
+        put(f"hf_tokenizer.conv.{i}.weight", tok[f"Conv_{i}"]["kernel"],
+            lambda k: k.transpose(3, 2, 0, 1))
+        put(f"hf_tokenizer.conv.{i}.bias", tok[f"Conv_{i}"]["bias"])
+    dense("hf_tokenizer.dense", tok["Dense_0"])
+    put("prev_noise_ind", p["prev_noise_ind"])
+    put("pos_embed", p["pos_embed"])
+    i = 0
+    while f"layers_{i}" in p:
+        layer, pre = p[f"layers_{i}"], f"layers.{i}"
+        attn = layer["MultiHeadDotProductAttention_0"]
+        for proj in ("query", "key", "value"):
+            k = attn[proj]["kernel"]
+            put(f"{pre}.{proj}.weight", k,
+                lambda a: a.reshape(a.shape[0], -1).T)
+            put(f"{pre}.{proj}.bias", attn[proj]["bias"],
+                lambda a: a.reshape(-1))
+        put(f"{pre}.out.weight", attn["out"]["kernel"],
+            lambda a: a.reshape(-1, a.shape[-1]).T)
+        put(f"{pre}.out.bias", attn["out"]["bias"])
+        for j in range(2):
+            put(f"{pre}.norm_{j}.weight", layer[f"LayerNorm_{j}"]["scale"])
+            put(f"{pre}.norm_{j}.bias", layer[f"LayerNorm_{j}"]["bias"])
+            dense(f"{pre}.dense_{j}", layer[f"Dense_{j}"])
+        i += 1
+    return out
+
+
+def _adam_state(opt_state):
+    """optax's ScaleByAdamState (count, mu, nu) inside an optax state."""
+    if {"mu", "nu", "count"} <= set(getattr(opt_state, "_fields", ())):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def mdm_state_from_numpy(tree) -> dict:
+    """The port's ``MDM.persistent_state`` dict (CPU tensors) from a JAX
+    ``MDMState`` with numpy leaves: params, EMA params, adam's ``mu``,
+    ``nu`` and ``count`` (AdamW's ``exp_avg``, ``exp_avg_sq`` and
+    ``step``: both bias-correct with count + 1 at the next step), mean,
+    std and step. The JAX key is not carried over: restore it with
+    ``MDM.merge_persistent`` into a state whose generator is seeded."""
+    adam = _adam_state(_get(tree, "opt_state"))
+    if adam is None:
+        raise ValueError("the optax state holds no adam state")
+    return {
+        "params": mdm_params_from_numpy(_get(tree, "params")),
+        "ema_params": mdm_params_from_numpy(_get(tree, "ema_params")),
+        "opt_state": {"exp_avg": mdm_params_from_numpy(adam.mu),
+                      "exp_avg_sq": mdm_params_from_numpy(adam.nu),
+                      "step": int(np.asarray(adam.count))},
+        "mean": _tensor("mean", _get(tree, "mean"), "cpu"),
+        "std": _tensor("std", _get(tree, "std"), "cpu"),
+        "step": int(np.asarray(_get(tree, "step"))),
+    }
+
+
 def normalizer_from_numpy(state, device="cpu") -> norm_lib.NormalizerState:
     """A NormalizerState from one with numpy leaves (mean, var, count,
     norm_mask, clip, sample_limit)."""

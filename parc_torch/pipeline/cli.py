@@ -6,6 +6,7 @@ Stages (those of the JAX package's CLI ported so far):
     python -m parc_torch.pipeline.cli train_tracker --dataset m.yaml --out_dir T
     python -m parc_torch.pipeline.cli record --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli eval --dataset m.yaml --tracker_dir T
+    python -m parc_torch.pipeline.cli train_mdm --dataset m.yaml --out_dir M
 
 Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the plain PyTorch versions on the CPU). Any flag can also come from a YAML
@@ -76,7 +77,8 @@ def _build_env(model, cfg: dict, device, **overrides):
     if name in ("parkour", "mgdm"):
         raise NotImplementedError(
             f"env_name {name!r} is not ported yet: parc_torch trains the "
-            f"deepmimic env only (the parkour and mgdm envs need the MDM)")
+            f"deepmimic env only (the parkour and mgdm envs come with "
+            f"kin-gen)")
     if name != "deepmimic":
         raise KeyError(f"unknown env_name {name!r}")
     env_cfg = dataclasses.replace(_dataclass_from_dict(EnvConfig, cfg),
@@ -110,6 +112,40 @@ def stage_train_tracker(cfg: dict):
     return train_tracker.train(agent, lib, tcfg, seed=cfg.get("seed", 0),
                                max_iters=cfg.get("max_iters"),
                                meta=dataset.dataset_meta(cfg["dataset"]))
+
+
+def stage_train_mdm(cfg: dict):
+    """Motion-diffusion training (parc_1) on the dataset clips; returns the
+    trained MDMState."""
+    from parc_torch.diffusion.mdm import MDM, MDMConfig
+    from parc_torch.pipeline import dataset, train_mdm
+    from parc_torch.utils import checkpoint as ckpt_lib
+    dev = _device(cfg)
+    seed = cfg.get("seed", 0)
+    model = _build_model(dev)
+    lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
+    mdm = MDM(model, _dataclass_from_dict(MDMConfig, cfg), device=dev)
+    tcfg = _dataclass_from_dict(train_mdm.MDMTrainerConfig, cfg)
+    if cfg.get("out_dir"):
+        tcfg = dataclasses.replace(tcfg, output_dir=cfg["out_dir"])
+    # warm start: PARC iterations k>1 continue training the previous
+    # iteration's model on the grown dataset rather than re-initializing
+    # (reference: parc_0_setup_iter.py:11,72-76 input_model_path ->
+    # parc_1_train_gen.py:40-46); the feature stats come with the restored
+    # state. A checkpoint already in out_dir (a resumed run) wins.
+    state = None
+    if (cfg.get("init_from")
+            and ckpt_lib.latest_step(
+                f"{tcfg.output_dir}/checkpoints") is None):
+        # the fresh state is only a template (the restore overwrites its
+        # stats), so a 64-sample estimate stands in for the exact pass
+        state = mdm.init(lib, torch.Generator(device=dev).manual_seed(seed),
+                         stats_samples=64)
+        state = mdm.merge_persistent(state, ckpt_lib.restore(
+            f"{cfg['init_from']}/checkpoints", map_location=dev))
+        print(f"warm-started MDM from {cfg['init_from']}")
+    return train_mdm.train(mdm, lib, tcfg, state=state, seed=seed,
+                           max_epochs=cfg.get("max_epochs"))
 
 
 def _select_checkpoint_step(cfg: dict):
@@ -208,12 +244,14 @@ STAGES = {
     "train_tracker": stage_train_tracker,
     "record": stage_record,
     "eval": stage_eval,
+    "train_mdm": stage_train_mdm,
 }
 
 
 def main(argv=None):
-    """Run one stage; returns what the stage returns (the trained state,
-    the recorded clips, the eval statistics), for callers in Python."""
+    """Run one stage; returns what the stage returns (the trained tracker
+    or MDM state, the recorded clips, the eval statistics), for callers in
+    Python."""
     p = argparse.ArgumentParser(prog="parc_torch.pipeline")
     p.add_argument("stage", choices=sorted(STAGES))
     p.add_argument("--config", default=None)
@@ -223,6 +261,9 @@ def main(argv=None):
     p.add_argument("--motions_dir", default=None)
     p.add_argument("--out", default=None)
     p.add_argument("--out_dir", default=None)
+    p.add_argument("--init_from", default=None,
+                   help="train_mdm: warm-start from this run's checkpoints"
+                        " (reference input_model_path iteration chaining)")
     p.add_argument("--tracker_dir", default=None)
     p.add_argument("--checkpoint", default=None,
                    help="tracker checkpoint for record/eval: 'last' "
@@ -230,6 +271,7 @@ def main(argv=None):
                         "or an int step")
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--max_iters", type=int, default=None)
+    p.add_argument("--max_epochs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--test_steps", type=int, default=None)
     p.add_argument("--test_episodes", type=int, default=None)

@@ -1,16 +1,19 @@
-"""The bf16 trunks of parc_torch.learning.networks against the same weights
-in f32. The file imports no JAX, so its cuda-marked test runs on a GPU
-machine with ``-m cuda --noconftest``.
+"""The bf16 trunks of parc_torch.learning.networks, and the MDM
+denoiser's bf16 encoder stack, against the same weights in f32. The file
+imports no JAX, so its cuda-marked tests run on a GPU machine with
+``-m cuda --noconftest``.
 
 bf16 keeps 8 bits of mantissa: the actor mean and the value agree with f32
 to 2 % of their scale at the tracker's widths (3x2048 trunks over the
-1312-wide obs).
+1312-wide obs), and the denoiser's output to 2 % of its largest magnitude
+at the small config of tests/test_mdm.py (2 layers, d_model 64).
 """
 
 import pytest
 import torch
 
 from parc_torch.data.humanoid import humanoid_spec
+from parc_torch.diffusion.transformer import MDMTransformer
 from parc_torch.envs.base import EnvConfig
 from parc_torch.envs.deepmimic import DeepMimicEnv
 from parc_torch.learning.networks import ActorCritic
@@ -73,3 +76,45 @@ def test_bf16_trunk_on_card(cuda):
                        EnvConfig(num_envs=2), device=cuda)
     agent = PPOAgent(env, PPOConfig(), device=cuda)
     assert agent.net.actor_trunk.compute_dtype == torch.bfloat16
+
+
+def _mdm_bf16_vs_f32(device, batch):
+    """The denoiser with its encoder stack in bf16 against f32: every
+    encoder layer's output is bf16, the denoiser's output f32, and the
+    error above 0 (a stack that silently ran in f32 fails) and below 2 %."""
+    small = dict(frame_dim=91, d_model=64, num_heads=4, d_hid=64,
+                 num_layers=2)
+    f32 = MDMTransformer(**small, generator=torch.Generator().manual_seed(0),
+                         device="cpu").to(device)
+    bf16 = MDMTransformer(**small, compute_dtype=torch.bfloat16,
+                          device=device)
+    bf16.load_state_dict(f32.state_dict())
+    g = torch.Generator().manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    args = (randn(batch, 15, 91), torch.randint(0, 1001, (batch,),
+                                                generator=g).to(device),
+            randn(batch, 2, 91), 0.3 * randn(batch, 31, 31),
+            randn(batch, 2))
+    seen = []
+    hooks = [layer.register_forward_hook(
+        lambda m, i, o: seen.append(o.dtype)) for layer in bf16.layers]
+    with torch.no_grad():
+        want, got = f32(*args), bf16(*args)
+    for h in hooks:
+        h.remove()
+    assert seen == [torch.bfloat16] * len(bf16.layers)
+    assert got.dtype == want.dtype == torch.float32
+    err = float((got - want).abs().max() / want.abs().max())
+    assert 0.0 < err < TOL, err
+
+
+def test_mdm_bf16_encoder_cpu():
+    _mdm_bf16_vs_f32(torch.device("cpu"), 8)
+
+
+@pytest.mark.cuda
+def test_mdm_bf16_encoder_on_card(cuda):
+    _mdm_bf16_vs_f32(cuda, 64)

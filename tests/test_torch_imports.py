@@ -1,9 +1,14 @@
 """The port stands alone: no module of parc_torch, and not chip_smoke.py,
 imports JAX, flax, optax, orbax or anything of parc_tpu (found by an AST
-scan of every import statement, including ones inside functions)."""
+scan of every import statement, including ones inside functions), and a
+fresh interpreter that imports every MDM module, trains an MDM a step and
+samples from it has none of them loaded."""
 
 import ast
 import pathlib
+import subprocess
+import sys
+import textwrap
 
 import pytest
 
@@ -34,7 +39,11 @@ def test_files_found():
                    "learning/diagnostics.py", "utils/checkpoint.py",
                    "utils/logger.py", "utils/profiling.py",
                    "pipeline/cli.py", "pipeline/train_tracker.py",
-                   "pipeline/record.py", "pipeline/dataset.py"):
+                   "pipeline/record.py", "pipeline/dataset.py",
+                   "diffusion/schedules.py", "diffusion/rot_changer.py",
+                   "diffusion/sampler.py", "diffusion/transformer.py",
+                   "diffusion/mdm.py", "diffusion/guidance.py",
+                   "diffusion/gen.py", "pipeline/train_mdm.py"):
         assert (ROOT / "parc_torch" / module) in FILES, module
 
 
@@ -43,3 +52,36 @@ def test_files_found():
 def test_no_jax_or_parc_tpu_import(path):
     bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_no_forbidden_module_after_an_mdm_runs():
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        import parc_torch.diffusion.gen, parc_torch.diffusion.guidance
+        import parc_torch.diffusion.rot_changer, parc_torch.pipeline.cli
+        import parc_torch.pipeline.train_mdm, parc_torch.convert
+        from parc_torch.anim import motion_lib as ml
+        from parc_torch.data import synthetic
+        from parc_torch.data.humanoid import humanoid_spec
+        from parc_torch.diffusion import sampler
+        from parc_torch.diffusion.mdm import MDM, MDMConfig
+        torch.set_num_threads(1)
+        model = humanoid_spec().build(device="cpu")
+        lib = ml.build_motion_lib(model, [synthetic.standing_clip(n=30)],
+                                  device="cpu")
+        mdm = MDM(model, MDMConfig(diffusion_timesteps=11, batch_size=2,
+                                   d_model=16, num_heads=2, d_hid=16,
+                                   num_layers=1), device="cpu")
+        g = torch.Generator().manual_seed(0)
+        state, _ = mdm.train_step(lib, mdm.init(lib, g, stats_samples=8))
+        b = sampler.sample_batch(model, mdm.scfg, lib, g, 2)
+        mdm.ddim_sample(state, g, b.prev_states, b.hf, b.target_dir)
+        print(sorted({m.split(".")[0] for m in sys.modules}))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+    assert "parc_torch" in loaded
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
