@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of parc_torch on one NVIDIA GPU: build the kernel, check it,
-drive the tracker rollout at full width, and report.
+drive the tracker rollout, training, the MDM and kin-gen at full width, and
+report.
 
     python3 chip_smoke.py
 
@@ -66,15 +67,42 @@ Phases, each printing one line of facts:
    guidance; and ``ddpm_sample`` (1001 steps) once. Each run's seconds and
    denoiser calls (201 for DDIM, 1001 for DDPM); frames (64, 15, 34)
    finite, contacts (64, 15, 15) in {0, 1}. The MDM reaches no hand-written
-   kernel (the JAX package runs its denoiser outside Pallas too).
+   kernel (the JAX package runs its denoiser outside Pallas too);
+8. kinematic generation (parc_2) from phase 7's checkpoint on phase 5's
+   dataset, at KinGenConfig() width (boxes terrains of 32 x 32 cells at
+   0.4 m, 32 rollouts a terrain, top-2, 500 Adam iterations, mirroring) with
+   the MDM at MDMConfig() (bf16 encoder), the keep thresholds at infinity
+   so that keep -> optimize -> mirror -> save runs on a 200-step MDM; run
+   length cut from 10 s: (a) ``kin_gen`` through the CLI, 2 motion slots
+   with 2 terrains a batch (64 rows a denoise step), 5 s paths; (b) the
+   sequential mode once, 1 slot, 2 s; each with its seconds, windows, rows,
+   frames generated per second, denoiser calls (gated at windows x 201),
+   native A* ms per plan, the contact optimization's ms per Adam iteration
+   and its summed loss before and after (gated: finite, not raised), how
+   many rollouts the default thresholds would have kept, and no physics
+   launch; (c) ``optimize`` on two of (a)'s clips (500 of its default 3,000
+   iterations), ``augment`` (2 motions, 200 of 1,000 iterations),
+   ``setup_iter``, and ``create_dataset`` over every output, each listed
+   clip reloaded equal to what its stage saved; (d) f32 (bf16 off) on the
+   card against the CPU: one window of generate_frames_along_path (8 rows,
+   explicit draws) over a kin-gen path's box terrain, both sides given the
+   CPU's local heightfield, within 1e-4 relative (the cells where the
+   card's own nearest-cell lookup differs are counted apart); one
+   motion-opt loss with its gradient (1e-5 of the total, 1e-4 of the
+   largest); (e) the device's idle share of one window of 64 rows
+   and of an Adam iteration (a 20-iteration run less a 0-iteration one),
+   from torch.profiler. Kin-gen reaches no
+   hand-written kernel (the JAX package runs it outside Pallas too).
 The line before the last holds the kernel report as JSON; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 before that line; without CUDA the script exits non-zero and runs nothing.
 """
 
+import contextlib
 import copy
 import csv
 import dataclasses
+import glob
 import json
 import shutil
 import subprocess
@@ -104,6 +132,7 @@ from parc_torch.physics import substep as sub
 from parc_torch.pipeline import cli
 from parc_torch.pipeline import dataset as dataset_lib
 from parc_torch.pipeline import record, train_tracker
+from parc_torch.pipeline.kin_gen import KinGenConfig
 from parc_torch.utils import checkpoint as ckpt_lib
 from parc_torch.utils import profiling
 from parc_torch.utils.terrain import Terrain
@@ -130,6 +159,16 @@ BF16_RATE = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 MDM_EPOCHS, MDM_ITERS = 4, 50  # phase 7a: 200 AdamW steps
 MDM_WINDOWS = 64  # phase 7: training batch and generated windows
 MDM_BF16_TOL, MDM_CPU_TOL = 2e-2, 1e-4  # phase 7b, relative max errors
+# phase 8: kin-gen at KinGenConfig() width; run length cut from 10 s
+KIN_MOTIONS, KIN_TERRAINS_PER_BATCH, KIN_SECONDS = 2, 2, 5.0  # 8a
+KIN_SEQ_SECONDS = 2.0  # 8b, one motion slot
+OPT_ITERS, AUG_MOTIONS, AUG_ITERS = 500, 2, 200  # 8c (defaults 3000, 1000)
+KIN_CHECK_ROWS, KIN_CHECK_SEED = 8, 3  # 8d, 8e
+# 8d, card vs CPU in f32, relative max errors: a window's frames over a
+# box terrain, both given the CPU's local heightfield; the motion-opt loss
+# terms and gradient
+KIN_FRAMES_TOL = 1e-4
+OPT_TERMS_TOL, OPT_GRAD_TOL = 1e-5, 1e-4
 
 
 def nvidia_smi() -> str:
@@ -958,6 +997,461 @@ def mdm_phase(t, device, smi):
               f"{r['root_travel']:.3f} m | {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: kinematic generation (parc_2) through the CLI
+# ---------------------------------------------------------------------------
+
+
+def source_loss(model, terrain, frames, contacts, cfg, constraints=None):
+    """The summed loss a contact optimization starts from: motion_opt_loss
+    at the source frames, with the constraints the optimizer would
+    estimate itself."""
+    from parc_torch.opt import motion_opt
+    f = torch.as_tensor(frames, dtype=torch.float32, device=model.device)
+    c = torch.as_tensor(contacts, dtype=torch.float32, device=model.device)
+    if constraints is None and cfg.auto_body_constraints \
+            and cfg.w_body_constraint > 0:
+        constraints = motion_opt.compute_approx_body_constraints(
+            model, terrain, f, c, cfg)
+    with torch.no_grad():
+        total, _ = motion_opt.motion_opt_loss(model, cfg, terrain, f, f, c,
+                                              constraints)
+    return float(total)
+
+
+@contextlib.contextmanager
+def kin_gen_probes(device):
+    """Count and time what kin-gen runs, by wrapping module functions for
+    the duration (restored on exit): MDM windows (gen_mdm_motion: calls,
+    rows, and the denoiser calls the MDM counts), native A* plans (ms
+    each), the rollout batches' results and the contact optimizations
+    (seconds, iterations, the loss summed over the clips at the source
+    frames and at the result)."""
+    from parc_torch.opt import motion_opt
+    from parc_torch.procgen import astar, mdm_path
+    rec = dict(windows=0, rows=0, denoise=0, astar_ms=[], results=[],
+               opt=[])
+    saved = []
+
+    def patch(obj, name, make):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, make(getattr(obj, name)))
+
+    def window(orig):
+        def run(mdm, state, generator, prev_frames34, *a, **kw):
+            rec["windows"] += 1
+            rec["rows"] += prev_frames34.shape[0]
+            calls = mdm.denoise_calls
+            out = orig(mdm, state, generator, prev_frames34, *a, **kw)
+            rec["denoise"] += mdm.denoise_calls - calls
+            return out
+        return run
+
+    def plan(orig):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            rec["astar_ms"].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    def rollouts(orig):
+        def run(*a, **kw):
+            out = orig(*a, **kw)
+            rec["results"].extend(out if isinstance(out, list) else [out])
+            return out
+        return run
+
+    def timed_opt(fn, cfg, before):
+        profiling.sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        profiling.sync(device)
+        clips = out if isinstance(out, list) else [out]
+        rec["opt"].append(dict(
+            s=time.perf_counter() - t0, iters=cfg.iters, clips=len(clips),
+            before=before,
+            after=sum(sum(losses.values()) for _, losses in clips)))
+        return out
+
+    def optimize_one(orig):
+        def run(model, terrain, frames, contacts,
+                cfg=motion_opt.MotionOptConfig(), constraints=None):
+            before = source_loss(model, terrain, frames, contacts, cfg,
+                                 constraints)
+            return timed_opt(lambda: orig(model, terrain, frames, contacts,
+                                          cfg, constraints), cfg, before)
+        return run
+
+    def optimize_many(orig):
+        def run(model, terrains, frames, contacts,
+                cfg=motion_opt.MotionOptConfig(), pad_to=None):
+            before = sum(source_loss(model, *clip, cfg)
+                         for clip in zip(terrains, frames, contacts))
+            return timed_opt(lambda: orig(model, terrains, frames, contacts,
+                                          cfg, pad_to), cfg, before)
+        return run
+
+    patch(gen_lib, "gen_mdm_motion", window)
+    patch(astar, "native_astar", plan)
+    patch(mdm_path, "generate_frames_multi", rollouts)
+    patch(mdm_path, "generate_frames_along_path", rollouts)
+    patch(motion_opt, "motion_contact_optimization_batched", optimize_many)
+    patch(motion_opt, "motion_contact_optimization", optimize_one)
+    try:
+        yield rec
+    finally:
+        for obj, name, orig in reversed(saved):
+            setattr(obj, name, orig)
+
+
+def run_kin_gen(t, device, name, motions, terrains_per_batch, seconds):
+    """One kin_gen through the CLI from phase 7's checkpoint on phase 5's
+    dataset at KinGenConfig() width, the keep thresholds at infinity."""
+    out = WORK / "gen" / name
+    shutil.rmtree(out, ignore_errors=True)
+    config = WORK / f"{name}.yaml"
+    config.write_text(yaml.safe_dump(dict(
+        max_contact_loss=float("inf"), max_pen_loss=float("inf"),
+        max_total_loss=float("inf"), terrains_per_batch=terrains_per_batch,
+        path_cfg=dict(max_seconds=seconds))))
+    sub.control_step_packed.launches = 0
+    with kin_gen_probes(device) as rec:
+        t0 = time.perf_counter()
+        paths = cli.main(["kin_gen", "--dataset", t["dataset"], "--mdm_dir",
+                          str(WORK / "mdm"), "--out_dir", str(out), "-n",
+                          str(motions), "--config", str(config)])
+        profiling.sync(device)
+        rec["s"] = time.perf_counter() - t0
+    rec["launches"] = sub.control_step_packed.launches
+    rec["paths"] = paths
+    steps = len(range(0, MDMConfig().diffusion_timesteps, 5))  # DDIM
+    kc = KinGenConfig()
+    rec["expect_denoise"] = rec["windows"] * steps
+    rec["default_kept"] = sum(int(np.sum(
+        (r.contact_loss < kc.max_contact_loss) & (r.pen_loss < kc.max_pen_loss)
+        & (r.total_loss < kc.max_total_loss))) for r in rec["results"])
+    rec["rollouts"] = sum(len(r.total_loss) for r in rec["results"])
+    expect_clips = motions * kc.top_k * 2
+    if len(paths) != expect_clips:
+        raise AssertionError(f"kin_gen {name}: {len(paths)} clips, expected "
+                             f"{expect_clips} (top-{kc.top_k} + mirrors)")
+    if rec["denoise"] != rec["expect_denoise"]:
+        raise AssertionError(f"kin_gen {name}: {rec['denoise']} denoiser "
+                             f"calls for {rec['windows']} windows, expected "
+                             f"{rec['expect_denoise']}")
+    if rec["launches"] != 0:
+        raise AssertionError(f"kin_gen launched the physics kernel "
+                             f"{rec['launches']} times")
+    for o in rec["opt"]:
+        if not (np.isfinite(o["before"]) and np.isfinite(o["after"])
+                and o["after"] <= o["before"]):
+            raise AssertionError(f"kin_gen {name}: contact optimization "
+                                 f"loss {o['before']} -> {o['after']}")
+    for p in paths:
+        clip = md.load_motion_data(p)
+        if not (np.isfinite(clip.frames).all() and clip.frames.shape[1] == 34
+                and clip.terrain is not None
+                and clip.terrain.hf_mask is not None):
+            raise AssertionError(f"kin_gen {name}: bad clip {p}")
+    return rec
+
+
+def chain_stages(t, device, clips):
+    """Phase 8c: optimize two of 8a's clips, augment, setup_iter, and
+    create_dataset over every output, each clip reloaded and held against
+    what its stage saved."""
+    src = WORK / "gen" / "opt_in"
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir(parents=True)
+    for p in clips[:2]:
+        shutil.copy(p, src)
+    config = WORK / "chain.yaml"
+    config.write_text(yaml.safe_dump(dict(
+        iters=OPT_ITERS, max_contact_loss=float("inf"),
+        max_pen_loss=float("inf"), max_total_loss=float("inf"),
+        opt_cfg=dict(iters=AUG_ITERS, auto_body_constraints=False))))
+    out = {}
+    with kin_gen_probes(device) as rec:
+        t0 = time.perf_counter()
+        opt = cli.main(["optimize", "--motions_dir", str(src), "--out_dir",
+                        str(WORK / "gen" / "opt"), "--config", str(config)])
+        out["optimize_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        aug = cli.main(["augment", "--motions_dir", str(src), "--out_dir",
+                        str(WORK / "gen" / "aug"), "-n", str(AUG_MOTIONS),
+                        "--config", str(config)])
+        out["augment_s"] = time.perf_counter() - t0
+    shutil.rmtree(src)
+    if (len(opt), len(aug)) != (2, AUG_MOTIONS):
+        raise AssertionError(f"optimize wrote {len(opt)}, augment "
+                             f"{len(aug)} clips")
+    iters = [o["iters"] for o in rec["opt"]]
+    if iters != [OPT_ITERS] * 2 + [AUG_ITERS] * AUG_MOTIONS:
+        raise AssertionError(f"optimizer iterations {iters}")
+    for o in rec["opt"]:
+        if not (np.isfinite(o["before"]) and np.isfinite(o["after"])
+                and o["after"] <= o["before"]):
+            raise AssertionError(f"optimize/augment loss {o['before']} -> "
+                                 f"{o['after']}")
+    configs = cli.main(["setup_iter", "--root", str(WORK / "parc"), "--iter",
+                        "0"])
+    for name, path in configs.items():
+        with open(path) as f:
+            if yaml.safe_load(f).get("device") != str(device):
+                raise AssertionError(f"setup_iter {name}: {path}")
+    saved = {}
+    for p in glob.glob(str(WORK / "gen" / "*" / "*.npz")):
+        c = md.load_motion_data(p)
+        saved[str(Path(p).resolve())] = (c.frames, c.contacts, c.terrain.hf)
+    t0 = time.perf_counter()
+    cli.main(["create_dataset", "--motions_dir", str(WORK / "gen"), "--out",
+              str(WORK / "gen.yaml"), "--config", str(config)])
+    out["dataset_s"] = time.perf_counter() - t0
+    files = [str(Path(f).resolve()) for f in dataset_files(
+        str(WORK / "gen.yaml"))]
+    if sorted(files) != sorted(saved):
+        raise AssertionError(f"create_dataset listed {len(files)} of "
+                             f"{len(saved)} clips")
+    for f in files:
+        c = md.load_motion_data(f)
+        for a, b in zip((c.frames, c.contacts, c.terrain.hf), saved[f]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{f} reloads unlike what was saved")
+    out.update(opt=rec["opt"], clips=len(files), classes=sorted(
+        {Path(f).parent.name for f in files}))
+    return out
+
+
+@contextlib.contextmanager
+def local_hf_hook(replace):
+    """Wraps gen.sample_local_hf for the duration: each call's own result
+    is appended to the list this yields, and ``replace(i, own)`` gives
+    what the i-th call returns."""
+    orig, seen = gen_lib.sample_local_hf, []
+
+    def run(*a, **kw):
+        seen.append(orig(*a, **kw))
+        return replace(len(seen) - 1, seen[-1])
+    gen_lib.sample_local_hf = run
+    try:
+        yield seen
+    finally:
+        gen_lib.sample_local_hf = orig
+
+
+def card_vs_cpu(device, clip_path):
+    """Phase 8d: f32 (bf16 off) on the card against the CPU, from phase 7's
+    checkpoint: one window of generate_frames_along_path with explicit
+    draws along a kin-gen path over its box terrain, the card's window
+    given the CPU's local heightfield (a nearest-cell lookup moves a whole
+    cell when a rotated sample point lands within rounding of a cell edge,
+    so the count of the card's own cells that differ is reported apart);
+    one motion-opt loss and its gradient on one of 8a's clips."""
+    from parc_torch.opt import motion_opt
+    from parc_torch.pipeline import kin_gen
+    from parc_torch.procgen import mdm_path
+    g = torch.Generator().manual_seed(8)
+    cfg = mdm_path.PathGenSettings(batch_size=KIN_CHECK_ROWS,
+                                   max_seconds=0.4)  # one window
+    noise = torch.randn((KIN_CHECK_ROWS, 15, 91), generator=g)
+    root_u = torch.rand((), generator=g)
+    runs = []  # the CPU's, then the card's
+    for dev in (torch.device("cpu"), device):
+        model = humanoid_spec().build(device=dev)
+        mdm = MDM(model, MDMConfig(bf16_compute=False), device=dev)
+        lib = dataset_lib.load_dataset(model, str(WORK / "dataset.yaml"),
+                                       device=dev)
+        state = mdm.merge_persistent(
+            mdm.init(lib, torch.Generator(device=dev).manual_seed(1),
+                     stats_samples=64),
+            ckpt_lib.restore(str(WORK / "mdm" / "checkpoints"),
+                             map_location=dev))
+        boxes, _, nodes = kin_gen._draw_terrain_and_path(
+            KinGenConfig(), np.random.default_rng(KIN_CHECK_SEED), dev)
+        cpu_hf = runs[0]["local_hf"] if runs else None
+        with local_hf_hook(lambda i, own: own if cpu_hf is None
+                           else cpu_hf[i].to(dev)) as local_hf:
+            frames = mdm_path.generate_frames_along_path(
+                mdm, state, boxes, nodes, None, None, None, cfg,
+                draws=mdm_path.PathDraws(root_u=root_u,
+                                         noise=[noise.to(dev)])).frames34
+        run = dict(frames=frames, local_hf=[h.cpu() for h in local_hf])
+        clip = md.load_motion_data(clip_path)
+        x = torch.as_tensor(clip.frames, device=dev).requires_grad_(True)
+        ocfg = motion_opt.MotionOptConfig()
+        ter = clip.terrain.to_device(dev)
+        bc = motion_opt.compute_approx_body_constraints(
+            model, ter, clip.frames, clip.contacts, ocfg)
+        total, terms = motion_opt.motion_opt_loss(
+            model, ocfg, ter, x, torch.as_tensor(clip.frames, device=dev),
+            torch.as_tensor(clip.contacts, device=dev), bc)
+        total.backward()
+        run.update(total=total.item(),
+                   terms={k: v.item() for k, v in terms.items()},
+                   grad=x.grad.cpu().numpy())
+        runs.append(run)
+    b, a = runs
+    if len(a["local_hf"]) != len(b["local_hf"]) or not b["local_hf"]:
+        raise AssertionError("phase 8d: the windows sampled "
+                             f"{len(a['local_hf'])} and "
+                             f"{len(b['local_hf'])} local heightfields")
+
+    def rel(key):
+        return float(np.abs(a[key] - b[key]).max() / np.abs(b[key]).max())
+    out = dict(frames_err=rel("frames"), grad_err=rel("grad"),
+               hf_cells=sum(int(torch.sum(x != y)) for x, y in
+                            zip(a["local_hf"], b["local_hf"])),
+               hf_total=sum(y.numel() for y in b["local_hf"]),
+               hf_moved=max(float(torch.abs(x - y).max()) for x, y in
+                            zip(a["local_hf"], b["local_hf"])))
+    out["terms_err"] = max(abs(a["terms"][k] - b["terms"][k])
+                           for k in b["terms"]) / abs(b["total"])
+    for key, tol in (("frames_err", KIN_FRAMES_TOL),
+                     ("terms_err", OPT_TERMS_TOL),
+                     ("grad_err", OPT_GRAD_TOL)):
+        if not out[key] <= tol:
+            raise AssertionError(f"phase 8d: card vs CPU {key} {out[key]} "
+                                 f"above {tol}")
+    return out
+
+
+def idle_shares(device, clip_paths):
+    """Phase 8e: the device's idle share of one MDM window of 64 rows (a
+    batched kin-gen's) and of an Adam iteration of the batched contact
+    optimization on 8a's first two clips (a 20-iteration run less a
+    0-iteration one, which estimates the constraints only), each from the
+    host's wall clock of an unprofiled run against the device's busy time
+    in a profiler trace of the next."""
+    from parc_torch.opt import motion_opt
+    from parc_torch.pipeline import kin_gen
+    from parc_torch.procgen import mdm_path
+    model = humanoid_spec().build(device=device)
+    mdm = MDM(model, MDMConfig(), device=device)
+    lib = dataset_lib.load_dataset(model, str(WORK / "dataset.yaml"),
+                                   device=device)
+    state = mdm.merge_persistent(
+        mdm.init(lib, torch.Generator(device=device).manual_seed(1),
+                 stats_samples=64),
+        ckpt_lib.restore(str(WORK / "mdm" / "checkpoints"),
+                         map_location=device))
+    drawn = [kin_gen._draw_terrain_and_path(
+        KinGenConfig(), np.random.default_rng(s), device)
+        for s in (KIN_CHECK_SEED, KIN_CHECK_SEED + 1)]
+    g = torch.Generator(device=device).manual_seed(9)
+    cfg = mdm_path.PathGenSettings(max_seconds=0.4)  # one window, 64 rows
+    clips = [md.load_motion_data(p) for p in clip_paths[:2]]
+    wall = {}
+
+    def timed(name, fn):
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.setdefault(name, time.perf_counter() - t0)
+        return run
+
+    def window():
+        mdm_path.generate_frames_multi(
+            mdm, state, [d[0] for d in drawn], [d[2] for d in drawn], g, cfg)
+
+    def adam(iters):
+        def run():
+            motion_opt.motion_contact_optimization_batched(
+                model, [c.terrain.to_device(device) for c in clips],
+                [c.frames for c in clips], [c.contacts for c in clips],
+                motion_opt.MotionOptConfig(iters=iters))
+        return run
+
+    busy = {name: device_busy_ms(timed(name, fn), 1)
+            for name, fn in (("window", window), ("adam20", adam(20)),
+                             ("adam0", adam(0)))}
+    out = {"window": dict(wall_ms=1e3 * wall["window"],
+                          busy_ms=busy["window"])}
+    out["adam"] = dict(
+        wall_ms=1e3 * (wall["adam20"] - wall["adam0"]) / 20,
+        busy_ms=(None if busy["adam20"] is None or busy["adam0"] is None
+                 else (busy["adam20"] - busy["adam0"]) / 20))
+    return out
+
+
+def kin_gen_phase(t, device, smi):
+    """Phase 8: kin-gen and the stages that share its modules, on the
+    card."""
+    from parc_torch import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.load_host("astar", ("astar.cpp",))  # the planner's g++ build
+    astar_build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    a = run_kin_gen(t, device, "kin", KIN_MOTIONS, KIN_TERRAINS_PER_BATCH,
+                    KIN_SECONDS)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    b = run_kin_gen(t, device, "kin_seq", 1, 1, KIN_SEQ_SECONDS)
+    for (phase, mode), r in ((("8a", "batched"), a),
+                             (("8b", "sequential"), b)):
+        gen_s = r["s"] - sum(o["s"] for o in r["opt"])
+        frames = r["rows"] * 15
+        opt = r["opt"]
+        adam_ms = (1e3 * sum(o["s"] for o in opt)
+                   / max(sum(o["iters"] for o in opt), 1))
+        print(f"phase {phase}: kin_gen through the CLI ({mode}, "
+              f"KinGenConfig(): {KinGenConfig().num_rollouts} rollouts a "
+              f"terrain, {2 * KinGenConfig().terrain_dim} x "
+              f"{2 * KinGenConfig().terrain_dim} cells): "
+              f"{len(r['paths'])} clips in {r['s']:.1f} s "
+              f"({r['s'] / (KIN_MOTIONS if r is a else 1):.1f} s a motion "
+              f"slot); {r['windows']} windows, {r['rows']} rows "
+              f"({r['rows'] // max(r['windows'], 1)} a window), "
+              f"{frames / gen_s:.1f} frames generated per second over "
+              f"{gen_s:.1f} s of generation; {r['denoise']} denoiser calls "
+              f"(= windows x {r['expect_denoise'] // max(r['windows'], 1)}); "
+              f"A* {len(r['astar_ms'])} plans, "
+              f"{np.mean(r['astar_ms']):.2f} ms each (native"
+              + (f", built with g++ in {astar_build_s:.1f} s before"
+                 if r is a else "") + "); contact "
+              f"optimization {len(opt)} runs, "
+              + ", ".join(f"{o['clips']} clips x {o['iters']} iterations "
+                          f"{o['s']:.2f} s, loss {o['before']:.4g} -> "
+                          f"{o['after']:.4g}" for o in opt)
+              + f" ({adam_ms:.2f} ms per Adam iteration); the default "
+              f"thresholds would keep {r['default_kept']} of "
+              f"{r['rollouts']} rollouts; physics launches {r['launches']}"
+              + (f"; peak device memory {peak_gb:.2f} GB" if r is a else "")
+              + f" | {smi}")
+    c = chain_stages(t, device, a["paths"])
+    print(f"phase 8c: optimize 2 clips x {OPT_ITERS} iterations in "
+          f"{c['optimize_s']:.1f} s, augment {AUG_MOTIONS} clips x "
+          f"{AUG_ITERS} iterations in {c['augment_s']:.1f} s ("
+          + ", ".join(f"{o['iters']} it {1e3 * o['s'] / o['iters']:.2f} ms "
+                      f"each, loss {o['before']:.4g} -> {o['after']:.4g}"
+                      for o in c["opt"])
+          + f"); setup_iter wrote 5 configs; create_dataset over "
+          f"{c['classes']} listed {c['clips']} clips in {c['dataset_s']:.1f}"
+          f" s, each reloaded equal to what its stage saved | {smi}")
+    d = card_vs_cpu(device, a["paths"][0])
+    print(f"phase 8d: card vs CPU, f32 (bf16 off): one window of "
+          f"{KIN_CHECK_ROWS} rows over a kin-gen box terrain, both given the "
+          f"CPU's local heightfield, frames relative max error "
+          f"{d['frames_err']:.3e} (gate {KIN_FRAMES_TOL}); the card's own "
+          f"nearest-cell lookup differs in {d['hf_cells']} of "
+          f"{d['hf_total']} cells (by up to {d['hf_moved']:.3g} m, not "
+          f"gated); motion-opt loss terms {d['terms_err']:.3e} of the total "
+          f"(gate {OPT_TERMS_TOL}), gradient {d['grad_err']:.3e} of its "
+          f"largest (gate {OPT_GRAD_TOL}) | {smi}")
+    e = idle_shares(device, a["paths"])
+    print("phase 8e: " + "; ".join(
+        f"{name} {r['wall_ms']:.1f} ms wall, device busy "
+        + ("not measured (no device time in the trace)"
+           if r["busy_ms"] is None else
+           f"{r['busy_ms']:.1f} ms, idle share "
+           f"{1.0 - r['busy_ms'] / r['wall_ms']:.3f}")
+        for name, r in (("one window of 64 rows", e["window"]),
+                        ("an Adam iteration on 2 clips (20 iterations less "
+                         "0)", e["adam"])))
+          + f" | {smi}")
+    return a
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs only "
@@ -1069,6 +1563,7 @@ def main():
               + f" (tolerance state {c['tol'][0]:.1e}, contact "
               f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N")
     mdm_phase(t, device, smi)
+    k8 = kin_gen_phase(t, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -1082,7 +1577,8 @@ def main():
         "launches_by_path": {"rollout": r["launches"],
                              "train_tracker": t["launches"],
                              "record": r6["record_launches"],
-                             "eval": r6["eval_launches"]}}]}))
+                             "eval": r6["eval_launches"],
+                             "kin_gen": k8["launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Motion clip container + .npz IO (numpy; ``HostTerrain.to_device`` gives
-the torch terrain).
+"""Motion clip container + .npz IO and the reference .pkl loaders (numpy;
+``HostTerrain.to_device`` gives the torch terrain).
 
 A motion clip is (frames, contacts, fps, loop_mode, terrain, hf_mask_inds)
 where a frame is the 34-D vector [root_pos(3), root_rot exp-map(3),
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 from typing import List, Optional
 
 import numpy as np
@@ -107,9 +108,10 @@ def save_motion_data(path: str, motion: MotionData) -> None:
 
 
 def load_motion_data(path: str) -> MotionData:
-    """Load a clip saved by :func:`save_motion_data`."""
+    """Load a clip saved by :func:`save_motion_data` (.npz), or a
+    reference-format .pkl clip (:func:`load_reference_pkl`)."""
     if not path.endswith(".npz"):
-        raise ValueError(f"only .npz clips are supported, got {path!r}")
+        return load_reference_pkl(path)
     with np.load(path, allow_pickle=False) as z:
         terrain = None
         if "terrain_hf" in z:
@@ -134,3 +136,86 @@ def load_motion_data(path: str) -> MotionData:
             obs=z["obs"] if "obs" in z else None,
             losses={k[len("loss_"):]: float(z[k])
                     for k in z.files if k.startswith("loss_")} or None)
+
+
+class _Shim:
+    """Generic stand-in for foreign classes inside reference pickles."""
+
+    def __init__(self, *a, **kw):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+
+class _RefUnpickler(pickle.Unpickler):
+    """Unpickles reference .pkl clips without importing reference code.
+
+    Torch tensors resolve through the installed torch; any class from the
+    reference package namespace becomes a ``_Shim`` carrying its __dict__.
+    """
+
+    _FOREIGN_PREFIXES = ("util.", "anim.", "envs.", "diffusion.", "tools.",
+                         "zmotion_editing_tools.")
+
+    def find_class(self, module, name):
+        if module.startswith(self._FOREIGN_PREFIXES) or module in (
+                "terrain_util", "kin_char_model"):
+            return type(name, (_Shim,), {})
+        return super().find_class(module, name)
+
+
+def _to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _host_terrain(t: dict) -> HostTerrain:
+    """A reference SubTerrain's __dict__ as a HostTerrain."""
+    return HostTerrain(
+        hf=_to_numpy(t["hf"]),
+        min_point=_to_numpy(t.get("min_point", np.zeros(2))),
+        dxdy=_to_numpy(t.get("dxdy", np.asarray([0.4, 0.4]))),
+        hf_mask=_to_numpy(t["hf_mask"]).astype(bool)
+        if t.get("hf_mask") is not None else None,
+        hf_maxmin=_to_numpy(t["hf_maxmin"])
+        if t.get("hf_maxmin") is not None else None)
+
+
+def load_reference_pkl(path: str) -> MotionData:
+    """Load a reference-format motion .pkl clip."""
+    with open(path, "rb") as f:
+        raw = _RefUnpickler(f).load()
+    if hasattr(raw, "__dict__"):  # e.g. a pickled MotionData shim
+        raw = raw.__dict__.get("_data", raw.__dict__)
+    frames = _to_numpy(raw["frames"]).astype(np.float32)
+    contacts = (_to_numpy(raw["contacts"]).astype(np.float32)
+                if "contacts" in raw else None)
+    terrain = None
+    if "terrain" in raw and raw["terrain"] is not None:
+        terrain = _host_terrain(raw["terrain"].__dict__)
+    hf_mask_inds = None
+    if raw.get("hf_mask_inds") is not None:
+        hf_mask_inds = [_to_numpy(x).astype(np.int32)
+                        for x in raw["hf_mask_inds"]]
+    lm = raw.get("loop_mode", CLAMP)
+    if not isinstance(lm, str):
+        lm = CLAMP if int(getattr(lm, "value", 0)) == 0 else WRAP
+    losses = None
+    if raw.get("loss") is not None:  # reference stores a scalar total loss
+        losses = {"total": float(_to_numpy(raw["loss"]))}
+    return MotionData(frames=frames, fps=float(raw.get("fps", 30)),
+                      loop_mode=lm, contacts=contacts, terrain=terrain,
+                      hf_mask_inds=hf_mask_inds, losses=losses)
+
+
+def load_reference_terrain_pkl(path: str) -> HostTerrain:
+    """Load a standalone reference SubTerrain .pkl (or the terrain of a
+    motion .pkl)."""
+    with open(path, "rb") as f:
+        raw = _RefUnpickler(f).load()
+    t = raw.__dict__ if hasattr(raw, "__dict__") else raw
+    if "terrain" in t:  # a motion pkl carrying its terrain
+        t = t["terrain"].__dict__
+    return _host_terrain(t)

@@ -1,12 +1,15 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries: the hand-written CUDA
+kernels and the host C++ planner.
 
 Each kernel library is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface and loaded with ``ctypes``. The
-build happens at first use, into ``build/parc_torch/`` at the root of the
-checkout, under a name that carries a hash of the sources, so an edited
-source rebuilds and an unchanged one is reused. The compiler's report
-(``-Xptxas -v``: registers, local memory and spills per kernel) is kept
-beside the library as ``<name>-<hash>.log``.
+shared library with a plain C interface and loaded with ``ctypes``; the
+host library (``native/astar.cpp``) is compiled the same way by ``g++``.
+The build happens at first use, into ``build/parc_torch/`` at the root of
+the checkout, under a name that carries a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is reused. The
+compiler's report (for nvcc ``-Xptxas -v``: registers, local memory and
+spills per kernel) is kept beside the library as ``<name>-<hash>.log``.
+A failed build raises; nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ from pathlib import Path
 from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "parc_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's flags for the same planner source: one seed, one path
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 
 def nvcc_path() -> str:
@@ -55,10 +61,10 @@ def library_path(name: str, sources: Sequence[str],
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: Sequence[str],
-          defines: Sequence[str] = ()) -> Path:
-    """Compile ``sources`` with nvcc unless the hashed library exists."""
-    out = library_path(name, sources, defines)
+def _compile(out: Path, cmd_head: Sequence[str], sources: Sequence[Path],
+             what: str) -> Path:
+    """Run ``cmd_head -o <tmp> sources`` unless ``out`` exists; keep the
+    compiler's output beside the library."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,12 +72,11 @@ def build(name: str, sources: Sequence[str],
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp,
-           *[str(CSRC / s) for s in sources]]
+    cmd = [*cmd_head, "-o", tmp, *[str(s) for s in sources]]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
@@ -81,7 +86,33 @@ def build(name: str, sources: Sequence[str],
     return out
 
 
+def build(name: str, sources: Sequence[str],
+          defines: Sequence[str] = ()) -> Path:
+    """Compile ``sources`` with nvcc unless the hashed library exists."""
+    return _compile(library_path(name, sources, defines),
+                    [nvcc_path(), *NVCC_FLAGS, *defines],
+                    [CSRC / s for s in sources], "nvcc")
+
+
 @functools.cache
 def load(name: str, sources: tuple, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load a kernel library; one load per process."""
     return ctypes.CDLL(str(build(name, sources, defines)))
+
+
+@functools.cache
+def load_host(name: str, sources: tuple) -> ctypes.CDLL:
+    """Build (if needed) with g++ and load a host library from ``sources``
+    (names under native/); one load per process. Raises if g++ is absent
+    or the build fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native planner builds only "
+                           "where a C++ compiler is installed")
+    paths = [NATIVE / s for s in sources]
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for f in paths:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return ctypes.CDLL(str(_compile(out, [gxx, *GXX_FLAGS], paths, "g++")))

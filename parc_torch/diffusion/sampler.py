@@ -24,11 +24,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.nn import functional as F
 
 from parc_torch.anim import char_model as cm
 from parc_torch.anim import motion_lib as ml
 from parc_torch.utils import rotation as rot
+from parc_torch.utils import terrain as terrain_lib
 
 POOL_PASSES = 3
 POOL_SIZES = (2, 4, 8)
@@ -135,11 +135,6 @@ def _uniform(generator, shape, device, lo=0.0, hi=1.0) -> torch.Tensor:
     return u * (hi - lo) + lo if (lo, hi) != (0.0, 1.0) else u
 
 
-def _clip(x, lo, hi):
-    """jnp.clip with tensor bounds: min(max(x, lo), hi), broadcast."""
-    return torch.minimum(torch.maximum(x, lo), hi)
-
-
 def _features(model: cm.CharModel, frame: ml.MotionFrame,
               canon_xy, canon_z, canon_heading_inv) -> torch.Tensor:
     """Canonicalized 91-D features for a batch of frames (..., T)."""
@@ -233,15 +228,6 @@ def draw_augment(cfg: SamplerConfig, generator, b: int,
         shift_dh=_uniform(generator, (b,), device, -0.6, 0.6))
 
 
-def _maxpool_same(h: torch.Tensor, sx: int, sy: int) -> torch.Tensor:
-    """lax.reduce_window(max, (1, sx, sy), stride 1, "SAME") of (B, X, Y):
-    an even window pads (s - 1) // 2 cells before and s // 2 after, with
-    -inf (F.max_pool2d's own padding is symmetric)."""
-    x = F.pad(h[:, None], ((sy - 1) // 2, sy // 2, (sx - 1) // 2, sx // 2),
-              value=-float("inf"))
-    return F.max_pool2d(x, (sx, sy), stride=1)[:, 0]
-
-
 def _box_mask(hf: torch.Tensor, ij, wl) -> torch.Tensor:
     """(B, X, Y) cells inside each row's box."""
     x_ids = torch.arange(hf.shape[1], device=hf.device)[None, :, None]
@@ -266,18 +252,20 @@ def _augment_hf(cfg: SamplerConfig, hf, hf_max, hf_min,
                 sel = d.pool_do[i] & (d.pool_size[i] >= s) \
                     & (d.pool_kind[i] == kind)
                 pooled = torch.where(sel[:, None, None],
-                                     _maxpool_same(hf, sx, sy), pooled)
-        hf = _clip(pooled, hf_min, hf_max)
+                                     terrain_lib.pool_same(hf, sx, sy), pooled)
+        hf = terrain_lib.clip(pooled, hf_min, hf_max)
 
     boxes = d.boxes
     for k in range(boxes.ij.shape[0]):
         inside = _box_mask(hf, boxes.ij[k], boxes.wl[k])
-        new = _clip(boxes.height[k][:, None, None], hf_min, hf_max)
+        new = terrain_lib.clip(boxes.height[k][:, None, None], hf_min,
+                               hf_max)
         hf = torch.where(inside & boxes.active[k][:, None, None], new, hf)
 
     # global height shift where free
     return torch.where(d.shift_do[:, None, None],
-                       _clip(hf + d.shift_dh[:, None, None], hf_min, hf_max),
+                       terrain_lib.clip(hf + d.shift_dh[:, None, None],
+                                        hf_min, hf_max),
                        hf)
 
 

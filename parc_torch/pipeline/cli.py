@@ -2,24 +2,34 @@
 
 Stages (those of the JAX package's CLI ported so far):
 
-    python -m parc_torch.pipeline.cli create_dataset --motions_dir D --out m.yaml
-    python -m parc_torch.pipeline.cli train_tracker --dataset m.yaml --out_dir T
+    python -m parc_torch.pipeline.cli create_dataset --motions_dir D \
+        --out m.yaml
+    python -m parc_torch.pipeline.cli train_mdm --dataset m.yaml --out_dir M
+    python -m parc_torch.pipeline.cli kin_gen --dataset m.yaml --mdm_dir M \
+        --out_dir K -n 50
+    python -m parc_torch.pipeline.cli optimize --motions_dir K --out_dir O
+    python -m parc_torch.pipeline.cli augment --motions_dir K --out_dir A
+    python -m parc_torch.pipeline.cli train_tracker --dataset m.yaml \
+        --out_dir T
     python -m parc_torch.pipeline.cli record --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli eval --dataset m.yaml --tracker_dir T
-    python -m parc_torch.pipeline.cli train_mdm --dataset m.yaml --out_dir M
+    python -m parc_torch.pipeline.cli setup_iter --root R --iter N
 
 Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the plain PyTorch versions on the CPU). Any flag can also come from a YAML
-file via --config (flags win). Reference parity: run.py:95-164, parc_1..5
-scripts.
+file via --config (flags win). Reference parity: run.py:95-164,
+parc_0_setup_iter.py, parc_1..5 scripts.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
+import os
 import typing
 
+import numpy as np
 import torch
 import yaml
 
@@ -77,8 +87,8 @@ def _build_env(model, cfg: dict, device, **overrides):
     if name in ("parkour", "mgdm"):
         raise NotImplementedError(
             f"env_name {name!r} is not ported yet: parc_torch trains the "
-            f"deepmimic env only (the parkour and mgdm envs come with "
-            f"kin-gen)")
+            f"deepmimic env only (the parkour and mgdm envs are a later "
+            f"slice)")
     if name != "deepmimic":
         raise KeyError(f"unknown env_name {name!r}")
     env_cfg = dataclasses.replace(_dataclass_from_dict(EnvConfig, cfg),
@@ -239,19 +249,147 @@ def stage_eval(cfg: dict):
     return test, report
 
 
+def stage_kin_gen(cfg: dict):
+    """Kinematic generation (parc_2) from the MDM trained by ``train_mdm``
+    under ``mdm_dir`` (feature stats come with the checkpoint); returns the
+    written clip paths. ``batch_idx`` / ``num_batches`` shard the motion
+    slots across jobs that share ``out_dir`` (reference: parc_0 writes
+    num_batches_of_motions kin-gen job configs for separate machines)."""
+    from parc_torch.diffusion.mdm import MDM, MDMConfig
+    from parc_torch.pipeline import dataset, kin_gen
+    from parc_torch.utils import checkpoint as ckpt_lib
+    dev = _device(cfg)
+    model = _build_model(dev)
+    lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
+    mdm = MDM(model, _dataclass_from_dict(MDMConfig, cfg), device=dev)
+    state = mdm.init(lib, torch.Generator(device=dev).manual_seed(0),
+                     stats_samples=512)
+    if cfg.get("mdm_dir"):
+        state = mdm.merge_persistent(state, ckpt_lib.restore(
+            f"{cfg['mdm_dir']}/checkpoints", map_location=dev))
+    num_motions = cfg.get("num_motions", 10)
+    batch_idx = int(cfg.get("batch_idx", 0))
+    num_batches = int(cfg.get("num_batches", 1))
+    prefix = f"b{batch_idx}_" if num_batches > 1 else ""
+    paths = kin_gen.run_kin_gen(
+        mdm, state, num_motions, cfg.get("out_dir", "output/kin_gen"),
+        _dataclass_from_dict(kin_gen.KinGenConfig, cfg),
+        seed=cfg.get("seed", 0) + batch_idx * num_motions,
+        name_prefix=prefix)
+    print(f"generated {len(paths)} clips")
+    return paths
+
+
+def stage_setup_iter(cfg: dict):
+    """Write the per-iteration stage configs chaining output dirs
+    (reference: parc_0_setup_iter.py); returns {stage: config path}. Each
+    config carries the ``device`` its stage runs on."""
+    dev = _device(cfg)
+    root = cfg.get("root", "output/parc")
+    it = int(cfg.get("iter", 0))
+    base = os.path.join(root, f"iter_{it}")
+    os.makedirs(base, exist_ok=True)
+    stages = {
+        "train_mdm": {"dataset": os.path.join(base, "motions.yaml"),
+                      "out_dir": os.path.join(base, "mdm")},
+        "kin_gen": {"dataset": os.path.join(base, "motions.yaml"),
+                    "mdm_dir": os.path.join(base, "mdm"),
+                    "out_dir": os.path.join(base, "kin_gen"),
+                    "num_motions": cfg.get("num_motions", 50),
+                    "num_batches": cfg.get("num_batches", 1)},
+        "train_tracker": {"dataset": os.path.join(base, "motions+gen.yaml"),
+                          "out_dir": os.path.join(base, "tracker")},
+        "record": {"dataset": os.path.join(base, "motions+gen.yaml"),
+                   "tracker_dir": os.path.join(base, "tracker"),
+                   "out_dir": os.path.join(base, "recorded")},
+        "create_dataset": {"motions_dir": os.path.join(base, "recorded"),
+                           "out": os.path.join(root, f"iter_{it + 1}",
+                                               "motions.yaml")},
+    }
+    written = {}
+    for name, scfg in stages.items():
+        path = os.path.join(base, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump({**scfg, "device": str(dev)}, f)
+        print(f"wrote {path}")
+        written[name] = path
+    return written
+
+
+def _clip_files(motions_dir: str):
+    return sorted(glob.glob(os.path.join(motions_dir, "*.npz"))
+                  + glob.glob(os.path.join(motions_dir, "*.pkl")))
+
+
+def stage_augment(cfg: dict):
+    """Batch terrain-aware augmentation of an existing motion set
+    (reference: tools/motion_opt/augment_motions.py); returns the written
+    clip paths."""
+    from parc_torch.anim import motion_data as md
+    from parc_torch.pipeline import augment
+    model = _build_model(_device(cfg))
+    files = _clip_files(cfg["motions_dir"])
+    motions = [md.load_motion_data(f) for f in files]
+    acfg = _dataclass_from_dict(augment.AugmentConfig, cfg)
+    if cfg.get("num_motions"):
+        acfg = dataclasses.replace(acfg, num_new_motions=cfg["num_motions"])
+    paths = augment.run_augment(model, motions,
+                                cfg.get("out_dir", "output/augmented"),
+                                acfg, names=files, seed=cfg.get("seed", 0))
+    print(f"wrote {len(paths)} augmented clips")
+    return paths
+
+
+def stage_optimize(cfg: dict):
+    """Batch terrain-aware contact optimization of existing clips
+    (reference: tools/motion_opt/optimize_motions.py); returns
+    {written path: final losses}."""
+    from parc_torch.anim import motion_data as md
+    from parc_torch.opt import motion_opt
+    dev = _device(cfg)
+    model = _build_model(dev)
+    out_dir = cfg.get("out_dir", "output/optimized")
+    os.makedirs(out_dir, exist_ok=True)
+    ocfg = _dataclass_from_dict(motion_opt.MotionOptConfig, cfg)
+    written = {}
+    for f in _clip_files(cfg["motions_dir"]):
+        m = md.load_motion_data(f)
+        if m.terrain is None:
+            print(f"skipping {f} (no terrain)")
+            continue
+        contacts = (m.contacts if m.contacts is not None
+                    else np.zeros((m.frames.shape[0], model.num_bodies),
+                                  np.float32))
+        frames, losses = motion_opt.motion_contact_optimization(
+            model, m.terrain.to_device(dev), m.frames, contacts, ocfg)
+        base = os.path.splitext(os.path.basename(f))[0]
+        out = os.path.join(out_dir, base + "_opt.npz")
+        md.save_motion_data(out, dataclasses.replace(
+            m, frames=frames.cpu().numpy().astype(np.float32)))
+        print(f"{base}: pen={losses['penetration']:.4f} "
+              f"contact={losses['contact']:.4f} -> {out}")
+        written[out] = losses
+    print(f"optimized {len(written)} clips")
+    return written
+
+
 STAGES = {
     "create_dataset": stage_create_dataset,
     "train_tracker": stage_train_tracker,
     "record": stage_record,
     "eval": stage_eval,
     "train_mdm": stage_train_mdm,
+    "kin_gen": stage_kin_gen,
+    "setup_iter": stage_setup_iter,
+    "augment": stage_augment,
+    "optimize": stage_optimize,
 }
 
 
 def main(argv=None):
     """Run one stage; returns what the stage returns (the trained tracker
-    or MDM state, the recorded clips, the eval statistics), for callers in
-    Python."""
+    or MDM state, the recorded clips, the eval statistics, the written
+    files), for callers in Python."""
     p = argparse.ArgumentParser(prog="parc_torch.pipeline")
     p.add_argument("stage", choices=sorted(STAGES))
     p.add_argument("--config", default=None)
@@ -264,11 +402,17 @@ def main(argv=None):
     p.add_argument("--init_from", default=None,
                    help="train_mdm: warm-start from this run's checkpoints"
                         " (reference input_model_path iteration chaining)")
+    p.add_argument("--mdm_dir", default=None)
     p.add_argument("--tracker_dir", default=None)
     p.add_argument("--checkpoint", default=None,
                    help="tracker checkpoint for record/eval: 'last' "
                         "(default), 'best' (highest logged Test_Reward), "
                         "or an int step")
+    p.add_argument("--root", default=None)
+    p.add_argument("--iter", type=int, default=None)
+    p.add_argument("--num_motions", "-n", type=int, default=None)
+    p.add_argument("--batch_idx", type=int, default=None)
+    p.add_argument("--num_batches", type=int, default=None)
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--max_iters", type=int, default=None)
     p.add_argument("--max_epochs", type=int, default=None)

@@ -5,8 +5,9 @@ duration-proportional sampling weights, filters oversized terrains and
 high-loss clips, and precomputes terrain masks for clips missing them.
 
 Reference parity: PARC/util/create_dataset.py:40-202 +
-parc_5_create_dataset.py. The port reads ``.npz`` clips; a ``.pkl`` clip is
-listed but skipped as unreadable, with a message.
+parc_5_create_dataset.py. ``.npz`` clips and reference ``.pkl`` clips are
+read (anim/motion_data.load_motion_data); a clip that cannot be read is
+skipped with a message.
 """
 
 from __future__ import annotations

@@ -1,4 +1,8 @@
-"""Heightfield terrain (core): the grid the physics collides against.
+"""Heightfield terrain: the grid the physics collides against, its
+lookups, SDF queries and pooling (torch), and the procedural generators
+kin-gen draws terrains from (host numpy, with the JAX package's
+``np.random.Generator`` calls in the same order, so a seed gives the same
+heightfield bit for bit).
 
 Grid conventions:
 * ``hf[i, j]`` is the height of the cell whose *center* is at
@@ -95,6 +99,96 @@ def get_grid_index(terrain: Terrain, points_xy: torch.Tensor) -> torch.Tensor:
     return torch.clamp(inds, min=torch.zeros_like(hi), max=hi)
 
 
+def get_hf_val(terrain: Terrain, points_xy: torch.Tensor) -> torch.Tensor:
+    """Nearest-cell height lookup (matches the reference observation path)."""
+    inds = get_grid_index(terrain, points_xy)
+    return terrain.hf[inds[..., 0], inds[..., 1]]
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip as JAX differentiates it: maximum then minimum, so a value
+    on a bound gets half the gradient (torch.clamp passes all of it)."""
+    return torch.minimum(torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype,
+                                                          device=x.device)),
+                         torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's gradient at 0 (+1; torch.abs gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _bilinear(h00, h10, h01, h11, f):
+    fx, fy = f[..., 0], f[..., 1]
+    return ((1 - fx) * (1 - fy) * h00 + fx * (1 - fy) * h10
+            + (1 - fx) * fy * h01 + fx * fy * h11)
+
+
+def get_hf_val_bilinear(terrain: Terrain,
+                        points_xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear height interpolation (smoother contact normals for physics)."""
+    uv = (points_xy - terrain.min_point) / terrain.dxdy
+    hi = torch.as_tensor(terrain.dims, device=uv.device) - 1
+    uv = clip(uv, 0.0, hi.to(uv.dtype))
+    i0 = torch.floor(uv).long()
+    i1 = torch.minimum(i0 + 1, hi)
+    f = uv - i0
+    hf = terrain.hf
+    return _bilinear(hf[i0[..., 0], i0[..., 1]], hf[i1[..., 0], i0[..., 1]],
+                     hf[i0[..., 0], i1[..., 1]], hf[i1[..., 0], i1[..., 1]],
+                     f)
+
+
+def _stacked_uv(stacked: Terrain, terrain_idx: torch.Tensor,
+                points_xy: torch.Tensor) -> torch.Tensor:
+    """Fractional grid coords of world points in their per-row terrain.
+
+    stacked.hf (R, H, W); terrain_idx (N,); points_xy (N, ..., 2)."""
+    mp = stacked.min_point
+    if mp.dim() == 2:
+        mp = mp[terrain_idx]
+    mp = mp.reshape((points_xy.shape[0],) + (1,) * (points_xy.dim() - 2)
+                    + (2,))
+    uv = (points_xy - mp) / stacked.dxdy
+    hi = torch.as_tensor(stacked.hf.shape[-2:], device=uv.device) - 1
+    return clip(uv, 0.0, hi.to(uv.dtype))
+
+
+def _row_index(terrain_idx: torch.Tensor, like: torch.Tensor):
+    return terrain_idx.reshape((-1,) + (1,) * (like.dim() - 2))
+
+
+def get_hf_val_stacked(stacked: Terrain, terrain_idx: torch.Tensor,
+                       points_xy: torch.Tensor) -> torch.Tensor:
+    """Nearest-cell lookup where each row reads ITS OWN terrain."""
+    ij = torch.round(_stacked_uv(stacked, terrain_idx, points_xy)).long()
+    return stacked.hf[_row_index(terrain_idx, ij), ij[..., 0], ij[..., 1]]
+
+
+def get_hf_val_bilinear_stacked(stacked: Terrain, terrain_idx: torch.Tensor,
+                                points_xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear per-row-terrain lookup."""
+    uv = _stacked_uv(stacked, terrain_idx, points_xy)
+    hi = torch.as_tensor(stacked.hf.shape[-2:], device=uv.device) - 1
+    i0 = torch.floor(uv).long()
+    i1 = torch.minimum(i0 + 1, hi)
+    r = _row_index(terrain_idx, uv)
+    hf = stacked.hf
+    return _bilinear(hf[r, i0[..., 0], i0[..., 1]],
+                     hf[r, i1[..., 0], i0[..., 1]],
+                     hf[r, i0[..., 0], i1[..., 1]],
+                     hf[r, i1[..., 0], i1[..., 1]], uv - i0)
+
+
+def point_hf_penetration(terrain: Terrain,
+                         points: torch.Tensor) -> torch.Tensor:
+    """z distance above the heightfield cell under each point (<0 = below).
+
+    Reference parity: util/terrain_util.py:1540-1557.
+    """
+    return points[..., 2] - get_hf_val(terrain, points[..., 0:2])
+
+
 def compute_hf_mask_inds(terrain: Terrain, body_points: torch.Tensor,
                          pad_cells: int = 1) -> torch.Tensor:
     """Boolean (H, W) mask of cells touched by character body points.
@@ -154,3 +248,348 @@ def compute_hf_maxmin(terrain: Terrain, body_points: torch.Tensor,
     hmin = torch.where(jump, min_free, hmin)
     return dataclasses.replace(terrain, hf_mask=mask,
                                hf_maxmin=torch.stack([hmax, hmin], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# SDF queries
+# ---------------------------------------------------------------------------
+
+
+def _box_sdf(d: torch.Tensor) -> torch.Tensor:
+    """Box SDF from the per-axis excess ``d = |p - c| - halfdims``.
+
+    sqrt(sum^2 + eps), NOT a norm: its gradient at exactly zero is NaN, and
+    optimizers drive points onto the surface through this SDF. amax/maximum
+    split the gradient evenly among ties, as JAX's max does."""
+    outside = torch.sqrt(torch.sum(torch.maximum(d, torch.zeros_like(d))**2,
+                                   dim=-1) + 1e-12)
+    inside = torch.amax(d, dim=-1)
+    return outside + torch.minimum(inside, torch.zeros_like(inside))
+
+
+def points_boxes_sdf(points: torch.Tensor, box_centers: torch.Tensor,
+                     box_halfdims: torch.Tensor) -> torch.Tensor:
+    """SDF from each point to each axis-aligned box.
+
+    points (..., N, 3), box_centers (..., M, 3), box_halfdims (..., M, 3)
+    -> (..., N, M).
+    """
+    d = (_abs(points[..., :, None, :] - box_centers[..., None, :, :])
+         - box_halfdims[..., None, :, :])
+    return _box_sdf(d)
+
+
+def points_hf_sdf(points: torch.Tensor, hf: torch.Tensor,
+                  hf_min_point: torch.Tensor, dxdy: torch.Tensor,
+                  base_z: float = -10.0, inverted: bool = True,
+                  window: int = 3) -> torch.Tensor:
+    """SDF from points to a heightfield-of-boxes, over the
+    ``(2*window+1)^2`` cells around each point (exact for
+    |sdf| < window*dx). Each cell is a box column; ``inverted`` treats the
+    air above as the solid to get interior distances (reference:
+    util/terrain_util.py:1835-1893).
+
+    points: (N, 3); hf: (H, W). Returns (N,).
+    """
+    dev = points.device
+    hi = torch.as_tensor(hf.shape, device=dev) - 1
+    k = 2 * window + 1
+    ij0 = torch.round((points[..., 0:2] - hf_min_point) / dxdy).long()
+    ar = torch.arange(k, device=dev) - window
+    offs = torch.stack(torch.meshgrid(ar, ar, indexing="ij"),
+                       dim=-1).reshape(-1, 2)
+    ij = torch.minimum(torch.clamp(ij0[..., None, :] + offs, min=0), hi)
+    heights = hf[ij[..., 0], ij[..., 1]]                   # (N, k*k)
+    centers_xy = hf_min_point + ij.to(points.dtype) * dxdy
+    if inverted:
+        top_z = -base_z
+        z = (heights + top_z) / 2.0
+        z_half = (top_z - heights) / 2.0
+    else:
+        z = (heights + base_z) / 2.0
+        z_half = (heights - base_z) / 2.0
+    centers = torch.cat([centers_xy, z[..., None]], dim=-1)
+    halfdims = torch.cat([(dxdy / 2.0).expand(centers_xy.shape),
+                          z_half[..., None]], dim=-1)
+    d = _abs(points[..., None, :] - centers) - halfdims
+    sdf = torch.amin(_box_sdf(d), dim=-1)
+    return -sdf if inverted else sdf
+
+
+def terrain_sdf(terrain: Terrain, points: torch.Tensor,
+                **kw) -> torch.Tensor:
+    return points_hf_sdf(points, terrain.hf, terrain.min_point, terrain.dxdy,
+                         **kw)
+
+
+# ---------------------------------------------------------------------------
+# Pool / simplify ops (respect hf_maxmin where given)
+# ---------------------------------------------------------------------------
+
+
+def pool_same(hf: torch.Tensor, sx: int, sy: int,
+              mode: str = "max") -> torch.Tensor:
+    """lax.reduce_window(max or min, (sx, sy), stride 1, "SAME") over the
+    last two axes: an even window pads (s - 1) // 2 cells before and s // 2
+    after (F.max_pool2d's own padding is symmetric), with -inf for max and
+    +inf for min."""
+    sign = 1.0 if mode == "max" else -1.0
+    lead = hf.shape[:-2]
+    x = (sign * hf).reshape((-1, 1) + hf.shape[-2:])
+    x = F.pad(x, ((sy - 1) // 2, sy // 2, (sx - 1) // 2, sx // 2),
+              value=-float("inf"))
+    out = F.max_pool2d(x, (sx, sy), stride=1)
+    return sign * out.reshape(lead + out.shape[-2:])
+
+
+def maxpool_hf(hf: torch.Tensor, hf_maxmin: Optional[torch.Tensor],
+               size: int) -> torch.Tensor:
+    out = pool_same(hf, size, size, "max")
+    if hf_maxmin is not None:
+        out = clip(out, hf_maxmin[..., 1], hf_maxmin[..., 0])
+    return out
+
+
+def minpool_hf(hf: torch.Tensor, hf_maxmin: Optional[torch.Tensor],
+               size: int) -> torch.Tensor:
+    out = pool_same(hf, size, size, "min")
+    if hf_maxmin is not None:
+        out = clip(out, hf_maxmin[..., 1], hf_maxmin[..., 0])
+    return out
+
+
+def flat_maxpool_2x2(terrain: Terrain) -> Terrain:
+    """Snap each 2x2 block to its max height (stabilizes A* planning)."""
+    hf = terrain.hf
+    h, w = hf.shape
+    h2, w2 = h - h % 2, w - w % 2
+    blocks = hf[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2)
+    pooled = torch.amax(blocks, dim=(1, 3))
+    flat = pooled.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    hf = hf.clone()
+    hf[:h2, :w2] = flat
+    return dataclasses.replace(terrain, hf=hf)
+
+
+def flatten_4x4_near_edge(hf: np.ndarray, grid_ind, height: float
+                          ) -> np.ndarray:
+    """Flatten a 4x4 region around a grid cell to ``height``, aligned so
+    the region starts on an even index and the cell sits in its middle 2x2
+    (reference: util/terrain_util.py:2115-2133; applied around A*
+    start/end nodes so planning begins on stable footing,
+    parc_2_kin_gen.py:304-310)."""
+    hf = np.asarray(hf).copy()
+    i, j = int(grid_ind[0]), int(grid_ind[1])
+    x0 = i - 2 if i % 2 == 0 else i - 1
+    y0 = j - 2 if j % 2 == 0 else j - 1
+    hf[max(x0, 0):x0 + 4, max(y0, 0):y0 + 4] = height
+    return hf
+
+
+# ---------------------------------------------------------------------------
+# Slicing / padding (shapes change)
+# ---------------------------------------------------------------------------
+
+
+def pad_terrain(terrain: Terrain, pad: int, height: float = 0.0) -> Terrain:
+    """Pad every side by ``pad`` cells of ``height`` (unmasked, bounds
+    +-3 m around ``height``)."""
+    hf = F.pad(terrain.hf, (pad, pad, pad, pad), value=height)
+    mask = F.pad(terrain.hf_mask, (pad, pad, pad, pad), value=False)
+    inner = F.pad(torch.ones(terrain.dims, dtype=torch.bool,
+                             device=hf.device), (pad, pad, pad, pad),
+                  value=False)
+    maxmin = torch.stack([
+        torch.where(inner, F.pad(terrain.hf_maxmin[..., i],
+                                 (pad, pad, pad, pad)),
+                    torch.full_like(hf, height + off))
+        for i, off in ((0, 3.0), (1, -3.0))], dim=-1)
+    return Terrain(hf=hf, hf_mask=mask, hf_maxmin=maxmin,
+                   min_point=terrain.min_point - pad * terrain.dxdy,
+                   dxdy=terrain.dxdy)
+
+
+def slice_terrain(terrain: Terrain, min_i: int, min_j: int,
+                  max_i: int, max_j: int) -> Terrain:
+    off = torch.tensor([min_i, min_j], dtype=terrain.min_point.dtype,
+                       device=terrain.min_point.device)
+    return Terrain(
+        hf=terrain.hf[min_i:max_i, min_j:max_j],
+        hf_mask=terrain.hf_mask[min_i:max_i, min_j:max_j],
+        hf_maxmin=terrain.hf_maxmin[min_i:max_i, min_j:max_j],
+        min_point=terrain.min_point + off * terrain.dxdy,
+        dxdy=terrain.dxdy)
+
+
+def slice_terrain_around_points(terrain: Terrain, points_xy: np.ndarray,
+                                padding: float = 1.0,
+                                localize: bool = True) -> Terrain:
+    """Crop the terrain to the bounding box of (host) xy points."""
+    pts = np.asarray(points_xy).reshape(-1, 2)
+    dxdy = terrain.dxdy.cpu().numpy()
+    minp = terrain.min_point.cpu().numpy()
+    dims = np.asarray(terrain.dims)
+    pad = np.ceil(padding / dxdy).astype(int)
+    lo = np.floor((pts.min(0) - minp) / dxdy).astype(int) - pad
+    hi = np.ceil((pts.max(0) - minp) / dxdy).astype(int) + pad + 1
+    lo = np.clip(lo, 0, dims - 1)
+    hi = np.clip(hi, 1, dims)
+    out = slice_terrain(terrain, int(lo[0]), int(lo[1]), int(hi[0]),
+                        int(hi[1]))
+    if localize:
+        out = dataclasses.replace(out,
+                                  min_point=torch.zeros_like(out.min_point))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Procedural generation (host numpy; the JAX package's draws in its order)
+# ---------------------------------------------------------------------------
+
+
+def add_boxes(rng: np.random.Generator, hf: np.ndarray, num_boxes: int = 32,
+              box_min_height: float = -3.0, box_max_height: float = 3.0,
+              box_min_len: int = 1, box_max_len: int = 6,
+              hf_maxmin: Optional[np.ndarray] = None,
+              min_angle: float = 0.0,
+              max_angle: float = 2.0 * np.pi) -> np.ndarray:
+    """Stamp random (optionally rotated) raised/lowered boxes onto the
+    heightfield (reference: util/terrain_util.py:864-917 add_boxes_to_hf2:
+    boxes are rotated by a uniform angle about their center; pass
+    ``max_angle=0`` for axis-aligned stamps). ``hf_maxmin`` clamps the
+    result into per-cell motion-protected bounds. The result is float32."""
+    h, w = hf.shape
+    hf = hf.copy()
+    gx, gy = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    for _ in range(num_boxes):
+        c = rng.uniform(0.0, 1.0, size=2) * np.asarray([h, w], np.float32)
+        blen = rng.uniform(box_min_len, box_max_len, size=2)
+        ang = rng.uniform(min_angle, max_angle)
+        height = np.float32(rng.uniform(box_min_height, box_max_height))
+        rel_x, rel_y = gx - c[0], gy - c[1]
+        ca, sa = np.cos(ang), np.sin(ang)
+        rx = ca * rel_x - sa * rel_y
+        ry = sa * rel_x + ca * rel_y
+        in_box = (np.abs(rx) < blen[0] / 2) & (np.abs(ry) < blen[1] / 2)
+        hf = np.where(in_box, height, hf)
+    if hf_maxmin is not None:
+        hf = np.clip(hf, hf_maxmin[..., 1], hf_maxmin[..., 0])
+    return hf.astype(np.float32)
+
+
+def add_boxes_at_points(rng: np.random.Generator, hf: np.ndarray,
+                        centers_ij: np.ndarray,
+                        min_h: float = 0.1, max_h: float = 0.6,
+                        min_len: float = 2.0, max_len: float = 6.0,
+                        min_angle: float = 0.0,
+                        max_angle: float = np.pi) -> np.ndarray:
+    """Stamp randomly-rotated boxes centered at given grid points (grid
+    units): obstacles along a motion's path for terrain augmentation
+    (reference: util/terrain_util.py:930-969 add_boxes_to_hf_at_xy_points)."""
+    hf = hf.copy()
+    gx, gy = np.meshgrid(np.arange(hf.shape[0], dtype=np.float32),
+                         np.arange(hf.shape[1], dtype=np.float32),
+                         indexing="ij")
+    xy = np.stack([gx, gy], axis=-1)
+    for c in np.asarray(centers_ij, np.float32).reshape(-1, 2):
+        blen = rng.uniform(min_len, max_len, size=2)
+        ang = rng.uniform(min_angle, max_angle)
+        rel = xy - c
+        ca, sa = np.cos(ang), np.sin(ang)
+        rx = ca * rel[..., 0] - sa * rel[..., 1]
+        ry = sa * rel[..., 0] + ca * rel[..., 1]
+        in_box = (np.abs(rx) < blen[0] / 2) & (np.abs(ry) < blen[1] / 2)
+        hf = np.where(in_box, np.float32(rng.uniform(min_h, max_h)), hf)
+    return hf
+
+
+def add_stairs(rng: np.random.Generator, hf: np.ndarray,
+               min_start_height: float = -3.0, max_start_height: float = 1.0,
+               min_step: float = 0.1, max_step: float = 0.4,
+               min_width: int = 1, max_width: int = 3) -> np.ndarray:
+    """Add a run of stairs along a random axis direction."""
+    h, w = hf.shape
+    hf = hf.copy()
+    axis = rng.integers(0, 2)
+    direction = rng.choice([-1, 1])
+    height = rng.uniform(min_start_height, max_start_height)
+    step = rng.uniform(min_step, max_step) * rng.choice([-1, 1])
+    pos = 0
+    n = h if axis == 0 else w
+    while pos < n:
+        width = int(rng.integers(min_width, max_width + 1))
+        sl = slice(pos, min(pos + width, n))
+        rows = sl if direction == 1 else slice(n - sl.stop, n - sl.start)
+        if axis == 0:
+            hf[rows, :] = height
+        else:
+            hf[:, rows] = height
+        height += step
+        pos += width
+    return hf
+
+
+def perlin(rng: np.random.Generator, shape: Tuple[int, int],
+           res: Tuple[int, int] = (4, 4), octaves: int = 1,
+           persistence: float = 0.5, amplitude: float = 1.0) -> np.ndarray:
+    """Multi-octave 2D gradient (perlin) noise."""
+    def fade(t):
+        return 6 * t**5 - 15 * t**4 + 10 * t**3
+
+    def one(res_):
+        d0 = shape[0] // res_[0]
+        d1 = shape[1] // res_[1]
+        angles = 2 * np.pi * rng.random((res_[0] + 1, res_[1] + 1))
+        grads = np.stack([np.cos(angles), np.sin(angles)], axis=-1)
+        g = grads.repeat(d0, 0).repeat(d1, 1)[:shape[0] + d0, :shape[1] + d1]
+        xy = np.mgrid[0:shape[0], 0:shape[1]].transpose(1, 2, 0).astype(float)
+        xy[..., 0] = xy[..., 0] / d0 % 1
+        xy[..., 1] = xy[..., 1] / d1 % 1
+
+        def dot(grad, shift):
+            return (np.stack([xy[..., 0] + shift[0], xy[..., 1] + shift[1]],
+                             axis=-1) * grad[:shape[0], :shape[1]]).sum(-1)
+
+        n00 = dot(g[:-d0, :-d1], (0, 0))
+        n10 = dot(g[d0:, :-d1], (-1, 0))
+        n01 = dot(g[:-d0, d1:], (0, -1))
+        n11 = dot(g[d0:, d1:], (-1, -1))
+        t = fade(xy)
+        nx0 = n00 * (1 - t[..., 0]) + n10 * t[..., 0]
+        nx1 = n01 * (1 - t[..., 0]) + n11 * t[..., 0]
+        return np.sqrt(2) * ((1 - t[..., 1]) * nx0 + t[..., 1] * nx1)
+
+    noise = np.zeros(shape)
+    freq, amp = 1, 1.0
+    for _ in range(octaves):
+        r = (res[0] * freq, res[1] * freq)
+        if shape[0] % r[0] or shape[1] % r[1]:
+            break
+        noise += amp * one(r)
+        freq *= 2
+        amp *= persistence
+    return (amplitude * noise).astype(np.float32)
+
+
+def gen_curvy_paths(rng: np.random.Generator, hf: np.ndarray,
+                    num_paths: int = 10, floor_height: float = -1.0,
+                    path_min_height: float = -0.5,
+                    path_max_height: float = 3.0, curviness: float = 7.0,
+                    num_points: int = 180) -> np.ndarray:
+    """Carve random-walk paths of varying heights into a low floor."""
+    h, w = hf.shape
+    out = np.full_like(hf, floor_height)
+    for _ in range(num_paths):
+        pos = np.array([rng.uniform(0, h), rng.uniform(0, w)])
+        ang = rng.uniform(0, 2 * np.pi)
+        height = rng.uniform(path_min_height, path_max_height)
+        for _ in range(num_points):
+            i, j = int(pos[0]), int(pos[1])
+            if 0 <= i < h and 0 <= j < w:
+                out[max(0, i - 1):i + 2, max(0, j - 1):j + 2] = height
+            ang += rng.normal() * curviness * np.pi / 180.0
+            pos += np.array([np.cos(ang), np.sin(ang)])
+            if not (0 <= pos[0] < h and 0 <= pos[1] < w):
+                break
+    return out

@@ -1,8 +1,9 @@
 """The port stands alone: no module of parc_torch, and not chip_smoke.py,
 imports JAX, flax, optax, orbax or anything of parc_tpu (found by an AST
 scan of every import statement, including ones inside functions), and a
-fresh interpreter that imports every MDM module, trains an MDM a step and
-samples from it has none of them loaded."""
+fresh interpreter that imports every MDM and kin-gen module, trains an MDM
+a step, samples from it and runs a tiny kin-gen with it has none of them
+loaded."""
 
 import ast
 import pathlib
@@ -43,7 +44,11 @@ def test_files_found():
                    "diffusion/schedules.py", "diffusion/rot_changer.py",
                    "diffusion/sampler.py", "diffusion/transformer.py",
                    "diffusion/mdm.py", "diffusion/guidance.py",
-                   "diffusion/gen.py", "pipeline/train_mdm.py"):
+                   "diffusion/gen.py", "pipeline/train_mdm.py",
+                   "utils/terrain.py", "procgen/astar.py",
+                   "procgen/mdm_path.py", "opt/motion_opt.py",
+                   "anim/motion_edit.py", "anim/motion_data.py",
+                   "pipeline/kin_gen.py", "pipeline/augment.py"):
         assert (ROOT / "parc_torch" / module) in FILES, module
 
 
@@ -77,6 +82,16 @@ def test_no_forbidden_module_after_an_mdm_runs():
         state, _ = mdm.train_step(lib, mdm.init(lib, g, stats_samples=8))
         b = sampler.sample_batch(model, mdm.scfg, lib, g, 2)
         mdm.ddim_sample(state, g, b.prev_states, b.hf, b.target_dir)
+        import tempfile
+        from parc_torch.opt import motion_opt
+        from parc_torch.pipeline import augment, kin_gen
+        from parc_torch.procgen import mdm_path
+        cfg = kin_gen.KinGenConfig(
+            num_rollouts=2, top_k=1, terrain_dim=8,
+            max_contact_loss=1e9, max_pen_loss=1e9, max_total_loss=1e9,
+            opt_cfg=motion_opt.MotionOptConfig(iters=2),
+            path_cfg=mdm_path.PathGenSettings(max_seconds=0.5))
+        assert kin_gen.run_kin_gen(mdm, state, 1, tempfile.mkdtemp(), cfg)
         print(sorted({m.split(".")[0] for m in sys.modules}))
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
