@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of parc_torch on one NVIDIA GPU: build the kernel, check it,
-drive the tracker rollout, training, the MDM and kin-gen at full width, and
-report.
+drive the tracker rollout, training, the MDM, kin-gen and the parkour env
+at full width, and report.
 
     python3 chip_smoke.py
 
@@ -93,6 +93,26 @@ Phases, each printing one line of facts:
    and of an Adam iteration (a 20-iteration run less a 0-iteration one),
    from torch.profiler. Kin-gen reaches no
    hand-written kernel (the JAX package runs it outside Pallas too).
+9. the parkour env (parc_3's training env: dm rows on the dataset clips,
+   mgdm rows tracking references the MDM generates in the step) from
+   phase 7's checkpoint on phase 5's dataset: (a) ``train_tracker
+   --env_name parkour`` through the CLI at 4096 envs, 512 of them mgdm
+   rows, ParkourConfig() (a replan every 15 control steps, DDIM stride 20:
+   51 denoiser calls at MDMConfig() width), PPOConfig(), 3 iterations, the
+   test rollout cut to 100 steps: per iteration the wall time, samples/s,
+   replans and launches (32 each); each replan's wall and CUDA-event ms
+   and denoiser calls (gated); a control step with and without a replan,
+   a replan's device busy time and idle share; the peak device memory; a
+   checkpoint whose fail rates carry the terrain slot; (b) the kernel
+   against the plain version, as in phase 3, on the parkour state after a
+   replan, the mgdm rows on the platform slot of the grown terrain stack;
+   (c) one train_iter each of the vision policies (dm_cnn_mlp, dm_vit,
+   bf16 trunks) on that env at 4096 envs, an act call's ms, and a forward
+   pass bf16 against f32 within (0, 2e-2) relative; (d) ``record`` (one
+   env per clip, one start fraction) and ``eval`` (64 envs) from 9a's
+   checkpoint with the parkour config, both gated to build the deepmimic
+   env with SimParams(). The vision nets and the replans reach no
+   hand-written kernel (the JAX package runs them outside Pallas too).
 The line before the last holds the kernel report as JSON; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 before that line; without CUDA the script exits non-zero and runs nothing.
@@ -169,6 +189,9 @@ KIN_CHECK_ROWS, KIN_CHECK_SEED = 8, 3  # 8d, 8e
 # terms and gradient
 KIN_FRAMES_TOL = 1e-4
 OPT_TERMS_TOL, OPT_GRAD_TOL = 1e-5, 1e-4
+# phase 9: the parkour env at 4096 envs, PARKOUR_MGDM of them mgdm rows;
+# its test rollout (and 9d's eval) cut from 300 steps
+PARKOUR_MGDM, PARKOUR_TEST_STEPS = 512, 100
 
 
 def nvidia_smi() -> str:
@@ -564,14 +587,14 @@ def stage_state_check(dataset, tracker, device, num_envs, record_env):
     cfg = {"tracker_dir": tracker}
     g = torch.Generator(device=device).manual_seed(0)
     if record_env:
-        env = cli._build_env(model, cfg, device, num_envs=lib.num_motions,
-                             rand_reset=False)
+        env = cli._tracking_env(model, cfg, device, num_envs=lib.num_motions,
+                                rand_reset=False)
         agent, state = cli._restored_agent(cfg, lib, env, seed=0)
         es = env.reset(lib, g, num_envs=lib.num_motions,
                        motion_ids=torch.arange(lib.num_motions, device=device),
                        start_times=torch.zeros(lib.num_motions, device=device))
     else:
-        env = cli._build_env(model, cfg, device, num_envs=num_envs)
+        env = cli._tracking_env(model, cfg, device, num_envs=num_envs)
         agent, state = cli._restored_agent(cfg, lib, env, seed=0)
         es = env.reset(lib, g, num_envs=num_envs)
     for _ in range(SETTLE):
@@ -1451,6 +1474,319 @@ def kin_gen_phase(t, device, smi):
           + f" | {smi}")
     return a
 
+# ---------------------------------------------------------------------------
+# Phase 9: the parkour env (dm + mgdm rows, in-step MDM replans)
+# ---------------------------------------------------------------------------
+
+
+def parkour_config():
+    """Phase 9's config YAML: the parkour env at PARKOUR_MGDM mgdm rows,
+    ParkourConfig() and MDMConfig() otherwise; the test rollout and eval
+    cut to PARKOUR_TEST_STEPS, record to one start fraction."""
+    path = WORK / "parkour.yaml"
+    path.write_text(yaml.safe_dump(dict(
+        env_name="parkour", mgdm_num=PARKOUR_MGDM,
+        test_steps=PARKOUR_TEST_STEPS, start_fractions=[0.0])))
+    return str(path)
+
+
+def train_parkour(t, device):
+    """Phase 9a: train_tracker --env_name parkour through the CLI at 4096
+    envs from phase 7's MDM. Each train_iter is wrapped to count launches
+    and time it, each replan to time it (synchronized before and after:
+    wall and CUDA-event ms) and count its denoiser calls."""
+    from parc_torch.envs.parkour import ParkourEnv
+    out = WORK / "parkour_tracker"
+    shutil.rmtree(out, ignore_errors=True)
+    iters, replans, seen = [], [], {}
+    train_iter, replan = PPOAgent.train_iter, ParkourEnv._replan
+
+    def counted_iter(agent, lib, state, timer=None):
+        n0, r0, t0 = (sub.control_step_packed.launches, len(replans),
+                      time.perf_counter())
+        out_ = train_iter(agent, lib, state, timer=timer)
+        profiling.sync(device)
+        iters.append(dict(launches=sub.control_step_packed.launches - n0,
+                          wall_s=time.perf_counter() - t0,
+                          replans=len(replans) - r0, metrics=out_[1]))
+        seen.update(agent=agent, lib=lib, state=out_[0])
+        return out_
+
+    def timed_replan(env, mdm_state, state, draws):
+        profiling.sync(device)
+        calls, t0 = env.mdm.denoise_calls, time.perf_counter()
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              if device.type == "cuda" else None)
+        if ev:
+            ev[0].record()
+        new = replan(env, mdm_state, state, draws)
+        if ev:
+            ev[1].record()
+        profiling.sync(device)
+        replans.append(dict(
+            wall_ms=1e3 * (time.perf_counter() - t0),
+            event_ms=ev[0].elapsed_time(ev[1]) if ev else float("nan"),
+            calls=env.mdm.denoise_calls - calls, rows=draws.noise.shape[0]))
+        return new
+
+    PPOAgent.train_iter, ParkourEnv._replan = counted_iter, timed_replan
+    try:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        sub.control_step_packed.launches = 0
+        t0 = time.perf_counter()
+        state = cli.main(["train_tracker", "--dataset", t["dataset"],
+                          "--out_dir", str(out), "--mdm_dir",
+                          str(WORK / "mdm"), "--num_envs", str(NUM_ENVS),
+                          "--max_iters", str(TRAIN_ITERS), "--config",
+                          parkour_config(), "--device", device.type])
+        profiling.sync(device)
+        train_s = time.perf_counter() - t0
+        launches = sub.control_step_packed.launches
+        peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
+                   if device.type == "cuda" else float("nan"))
+    finally:
+        PPOAgent.train_iter, ParkourEnv._replan = train_iter, replan
+
+    agent, bundle = seen["agent"], seen["lib"]
+    env = agent.env
+    steps = agent.cfg.steps_per_iter
+    if not isinstance(env, ParkourEnv) or env.pcfg.mgdm_num != PARKOUR_MGDM:
+        raise AssertionError(f"train_tracker built {type(env).__name__}, not "
+                             f"the parkour env with {PARKOUR_MGDM} mgdm rows")
+    if [it["launches"] for it in iters] != [steps] * TRAIN_ITERS:
+        raise AssertionError(f"phase 9a: launches per train_iter "
+                             f"{[it['launches'] for it in iters]}, expected "
+                             f"{steps} each")
+    expect_calls = len(range(0, env.mdm.rates.num_timesteps,
+                             env.pcfg.ddim_stride))
+    if not replans or any(r["calls"] != expect_calls or r["rows"]
+                          != PARKOUR_MGDM for r in replans):
+        raise AssertionError(f"phase 9a: replans {replans}: expected "
+                             f"{expect_calls} denoiser calls on "
+                             f"{PARKOUR_MGDM} rows each")
+    for i, it in enumerate(iters):
+        m = it["metrics"]
+        for name in ("actor_loss", "critic_loss", "mean_reward"):
+            if not torch.isfinite(getattr(m, name)).all():
+                raise AssertionError(f"phase 9a: iteration {i + 1}: {name} "
+                                     f"not finite")
+    if float(state.sample_count) != TRAIN_ITERS * steps * NUM_ENVS:
+        raise AssertionError(f"phase 9a: sample_count "
+                             f"{float(state.sample_count)}")
+    if ckpt_lib.all_steps(str(out / "checkpoints")) != [TRAIN_ITERS]:
+        raise AssertionError("phase 9a: no checkpoint at step "
+                             f"{TRAIN_ITERS}")
+    fr = ckpt_lib.restore(str(out / "checkpoints"))["fail_rates"]
+    if fr.shape != (bundle.num_motions,):
+        raise AssertionError(f"phase 9a: fail rates {tuple(fr.shape)}, not "
+                             f"one per motion and the terrain slot")
+    train_replans = sum(it["replans"] for it in iters)
+    return dict(iters=iters, replans=replans, expect_calls=expect_calls,
+                launches=launches, train_s=train_s, peak_gb=peak_gb,
+                test_replans=len(replans) - train_replans,
+                test_launches=launches - steps * TRAIN_ITERS,
+                agent=agent, bundle=bundle, state=seen["state"],
+                tracker=str(out))
+
+
+@torch.no_grad()
+def parkour_steps(p, device):
+    """Phase 9a's step timings and 9b: from the trained agent's last env
+    state, a control step with a replan and one without (wall, synchronized;
+    the replan's device busy time from a profiler trace), then the kernel
+    against the plain version on the state after the replan, whose mgdm
+    rows stand on the platform slot of the grown terrain stack."""
+    agent, bundle, state = p["agent"], p["bundle"], p["state"]
+    env = agent.env
+    lib, mdm_state = env._unwrap(bundle)
+    g = torch.Generator(device=device).manual_seed(9)
+    es = state.env_state
+    action = agent.act(state, es.obs)
+
+    def step_ms(timer, reps=3):
+        walls = []
+        for _ in range(reps):
+            s = dataclasses.replace(es, replan_timer=timer)
+            profiling.sync(device)
+            t0 = time.perf_counter()
+            env.step(bundle, s, action, generator=g)
+            profiling.sync(device)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(walls))
+
+    with_replan, without = step_ms(1), step_ms(10 ** 6)
+    draws = env.draw_replan(g)
+    t0 = time.perf_counter()
+    env._replan(mdm_state, es, draws)
+    profiling.sync(device)
+    replan_wall = 1e3 * (time.perf_counter() - t0)
+    busy = (device_busy_ms(lambda: env._replan(mdm_state, es, draws), 1)
+            if device.type == "cuda" else None)
+    after = env.step(bundle, dataclasses.replace(es, replan_timer=1), action,
+                     generator=g)
+    slot = lib.num_motions - 1
+    if not bool((after.motion_ids[env.n_dm:] == slot).all()):
+        raise AssertionError("phase 9b: mgdm rows not on the terrain slot")
+    r = step_vs_plain(env.model, env, lib, after,
+                      agent.act(state, after.obs))
+    r["tol"] = judge_step(r, "phase 9b parkour control step")
+    return dict(step_replan_ms=with_replan, step_ms=without,
+                replan_wall_ms=replan_wall, replan_busy_ms=busy,
+                stack=tuple(lib.terrain_hf.shape), slot=slot, check=r)
+
+
+def vision_policies(p, device):
+    """Phase 9c: one train_iter each of the two vision policies on the
+    parkour env at 4096 envs (bf16 trunks on the card), the ms of an act
+    call, and a forward pass in bf16 against f32 on the same input."""
+    from parc_torch.learning import normalizer as norm_lib
+    env, bundle = p["agent"].env, p["bundle"]
+    out = {}
+    for name in ("dm_cnn_mlp", "dm_vit"):
+        agent = PPOAgent(env, PPOConfig(actor_net=name), device=device)
+        state = agent.init(bundle, torch.Generator(device=device)
+                           .manual_seed(3))
+        n0, t0 = sub.control_step_packed.launches, time.perf_counter()
+        state, m = agent.train_iter(bundle, state)
+        profiling.sync(device)
+        wall = time.perf_counter() - t0
+        launches = sub.control_step_packed.launches - n0
+        if launches != agent.cfg.steps_per_iter:
+            raise AssertionError(f"phase 9c {name}: {launches} launches in "
+                                 f"a train_iter")
+        for k in ("actor_loss", "critic_loss", "mean_reward"):
+            if not torch.isfinite(getattr(m, k)).all():
+                raise AssertionError(f"phase 9c {name}: {k} not finite")
+        obs = state.env_state.obs
+        act_ms = (cuda_ms(lambda: agent.act(state, obs), 10)
+                  if device.type == "cuda" else float("nan"))
+        with torch.no_grad():
+            x = norm_lib.normalize(state.obs_norm, obs)
+            low = agent.net(x)
+            dtype, agent.net.compute_dtype = agent.net.compute_dtype, None
+            full = agent.net(x)
+            agent.net.compute_dtype = dtype
+        err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in ((low[0], full[0]), (low[2], full[2])))
+        if device.type == "cuda" and not 0.0 < err < MDM_BF16_TOL:
+            raise AssertionError(f"phase 9c {name}: bf16 vs f32 relative "
+                                 f"max error {err:.3e} outside (0, "
+                                 f"{MDM_BF16_TOL})")
+        out[name] = dict(
+            wall_s=wall, launches=launches, act_ms=act_ms, bf16_err=err,
+            params=sum(q.numel() for q in agent.net.parameters()),
+            critic_loss=m.critic_loss.item(), reward=m.mean_reward.item())
+    return out
+
+
+def parkour_record_eval(p, t, device):
+    """Phase 9d: record (one env per clip, one start fraction) and eval at
+    EVAL_ENVS envs from 9a's checkpoint with the parkour config: both must
+    build the deepmimic env with SimParams()."""
+    built, tracking_env = [], cli._tracking_env
+
+    def spy(*args, **kwargs):
+        built.append(tracking_env(*args, **kwargs))
+        return built[-1]
+    cli._tracking_env = spy
+    common = ["--dataset", t["dataset"], "--tracker_dir", p["tracker"],
+              "--config", parkour_config(), "--device", device.type]
+    try:
+        sub.control_step_packed.launches = 0
+        t0 = time.perf_counter()
+        results = cli.main(["record", "--out_dir",
+                            str(WORK / "parkour_recorded")] + common)
+        profiling.sync(device)
+        record_s = time.perf_counter() - t0
+        record_launches = sub.control_step_packed.launches
+        sub.control_step_packed.launches = 0
+        t0 = time.perf_counter()
+        test, _ = cli.main(["eval", "--num_envs", str(EVAL_ENVS)] + common)
+        profiling.sync(device)
+        eval_s = time.perf_counter() - t0
+        eval_launches = sub.control_step_packed.launches
+    finally:
+        cli._tracking_env = tracking_env
+    for env in built:
+        if (type(env) is not DeepMimicEnv
+                or env.sim_params != engine.SimParams()):
+            raise AssertionError(f"phase 9d: record/eval built "
+                                 f"{type(env).__name__} with "
+                                 f"{env.sim_params}")
+    if len(built) != 2 or built[0].cfg.num_envs != len(results):
+        raise AssertionError("phase 9d: record and eval envs not as asked")
+    lib = ml.load_motion_lib(humanoid_spec().build(),
+                             dataset_files(t["dataset"]), device="cpu")
+    per_round = record.round_steps(lib, record.RecordConfig().max_steps)
+    if record_launches != per_round:
+        raise AssertionError(f"phase 9d: record launched {record_launches} "
+                             f"times, not one {per_round}-step round")
+    if eval_launches != int(test["test_steps"]):
+        raise AssertionError(f"phase 9d: eval {eval_launches} launches over "
+                             f"{int(test['test_steps'])} steps")
+    return dict(recorded=sum(c is not None for c in results),
+                motions=len(results), record_s=record_s,
+                record_launches=record_launches, eval_s=eval_s,
+                eval_launches=eval_launches,
+                test_reward=float(test["mean_reward"]))
+
+
+def parkour_phase(t, device, smi):
+    """Phase 9: the parkour env through the CLI, its kernel check, the
+    vision policies, and record/eval of a parkour tracker."""
+    p = train_parkour(t, device)
+    for i, it in enumerate(p["iters"]):
+        print(f"phase 9a: iteration {i + 1}: {it['wall_s']:.3f} s, "
+              f"{PPOConfig().steps_per_iter * NUM_ENVS / it['wall_s']:.1f} "
+              f"samples/s, {it['replans']} replans, control-step launches "
+              f"{it['launches']} | {smi}")
+    walls = [r["wall_ms"] for r in p["replans"]]
+    events = [r["event_ms"] for r in p["replans"]]
+    print(f"phase 9a: train_tracker --env_name parkour through the CLI: "
+          f"{NUM_ENVS} envs ({PARKOUR_MGDM} mgdm rows, ParkourConfig(): "
+          f"{p['expect_calls']} DDIM steps a replan at MDMConfig() width), "
+          f"PPOConfig(), {TRAIN_ITERS} iterations in {p['train_s']:.1f} s; "
+          f"{len(walls)} replans ({p['test_replans']} in the test rollout, "
+          f"{p['test_launches']} test steps), each {min(walls):.1f}-"
+          f"{max(walls):.1f} ms wall (median {np.median(walls):.1f}), "
+          f"{min(events):.1f}-{max(events):.1f} ms by CUDA events; "
+          f"{p['launches']} launches; peak device memory "
+          f"{p['peak_gb']:.2f} GB | {smi}")
+    s = parkour_steps(p, device)
+    busy = s["replan_busy_ms"]
+    print(f"phase 9a: a control step {s['step_replan_ms']:.1f} ms with a "
+          f"replan, {s['step_ms']:.1f} ms without (wall, median of 3); a "
+          f"replan {s['replan_wall_ms']:.1f} ms wall, device busy "
+          + ("not measured (no device time in the trace)" if busy is None
+             else f"{busy:.1f} ms, idle share "
+             f"{1.0 - busy / s['replan_wall_ms']:.3f}") + f" | {smi}")
+    c = s["check"]
+    print(f"phase 9b: parkour env after a replan ({NUM_ENVS} envs, terrain "
+          f"stack {s['stack']}, mgdm rows on slot {s['slot']}): kernel vs "
+          f"plain control step "
+          + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
+          + f" (tolerance state {c['tol'][0]:.1e}, contact "
+          f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N "
+          f"| {smi}")
+    v = vision_policies(p, device)
+    for name, r in v.items():
+        print(f"phase 9c: {name} ({r['params']} parameters, bf16 trunk): "
+              f"one train_iter at {NUM_ENVS} envs in {r['wall_s']:.2f} s "
+              f"({r['launches']} launches; critic loss "
+              f"{r['critic_loss']:.4g}, mean reward {r['reward']:.4f}); act "
+              f"{r['act_ms']:.3f} ms (CUDA events, 10 calls); bf16 vs f32 "
+              f"relative max error {r['bf16_err']:.3e} (gate (0, "
+              f"{MDM_BF16_TOL})) | {smi}")
+    d = parkour_record_eval(p, t, device)
+    print(f"phase 9d: record from the parkour checkpoint (deepmimic env, "
+          f"SimParams()): recorded {d['recorded']}/{d['motions']} in "
+          f"{d['record_s']:.1f} s, {d['record_launches']} steps; eval at "
+          f"{EVAL_ENVS} envs: {d['eval_launches']} steps in "
+          f"{d['eval_s']:.1f} s, test reward {d['test_reward']:.4f} "
+          f"| {smi}")
+    return p
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1564,6 +1900,7 @@ def main():
               f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N")
     mdm_phase(t, device, smi)
     k8 = kin_gen_phase(t, device, smi)
+    p9 = parkour_phase(t, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -1578,7 +1915,8 @@ def main():
                              "train_tracker": t["launches"],
                              "record": r6["record_launches"],
                              "eval": r6["eval_launches"],
-                             "kin_gen": k8["launches"]}}]}))
+                             "kin_gen": k8["launches"],
+                             "parkour": p9["launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -265,3 +265,66 @@ def frames_34d(model: cm.CharModel, frame: MotionFrame) -> torch.Tensor:
     return torch.cat([
         frame.root_pos, rot.quat_to_exp_map(frame.root_rot),
         cm.rot_to_dof(model, frame.joint_rot)], dim=-1)
+
+
+def append_terrain_slot(lib: MotionLib, terrain) -> MotionLib:
+    """``lib`` with one zero-weight dummy motion appended whose terrain is
+    ``terrain`` (a ``utils.terrain.Terrain`` with an (H, W) hf).
+
+    The parkour env pins its MDM-driven envs to this slot, so the per-motion
+    terrain lookup and fail-rate statistics serve them too, while their
+    reference frames come from the generated window buffer. Every terrain
+    is edge-padded to the larger of the two grids; the slot's max/min
+    bounds are its heights +- 3 m, and its two frames are identity poses
+    that are never sampled (weight 0)."""
+    dev = lib.device
+    hf_new = terrain.hf.detach().cpu().numpy().astype(np.float32)
+    old_hf = lib.terrain_hf.cpu().numpy()
+    old_mm = lib.terrain_maxmin.cpu().numpy()
+    ht = max(old_hf.shape[1], hf_new.shape[0])
+    wt = max(old_hf.shape[2], hf_new.shape[1])
+
+    def pad(h):
+        widths = ((0, ht - h.shape[0]), (0, wt - h.shape[1]))
+        return np.pad(h, widths + ((0, 0),) * (h.ndim - 2), mode="edge")
+
+    mm_new = np.stack([hf_new + 3.0, hf_new - 3.0], -1)
+    hf_stack = np.stack([pad(h) for h in old_hf] + [pad(hf_new)])
+    mm_stack = np.stack([pad(m) for m in old_mm] + [pad(mm_new)])
+
+    two = 2  # dummy frames
+
+    def pad_frames(x, identity=False):
+        z = torch.zeros((two,) + x.shape[1:], dtype=x.dtype, device=dev)
+        if identity:
+            z[..., 3] = 1.0
+        return torch.cat([x, z])
+
+    def append(x, v, dtype=torch.float32):
+        return torch.cat([x, torch.as_tensor(np.asarray(v), dtype=dtype,
+                                             device=dev)])
+
+    f = int(lib.num_frames.sum())
+    return dataclasses.replace(
+        lib,
+        frame_root_pos=pad_frames(lib.frame_root_pos),
+        frame_root_rot=pad_frames(lib.frame_root_rot, identity=True),
+        frame_root_vel=pad_frames(lib.frame_root_vel),
+        frame_root_ang_vel=pad_frames(lib.frame_root_ang_vel),
+        frame_joint_rot=pad_frames(lib.frame_joint_rot, identity=True),
+        frame_dof_vel=pad_frames(lib.frame_dof_vel),
+        frame_contacts=pad_frames(lib.frame_contacts),
+        start_idx=append(lib.start_idx, [f], torch.int64),
+        num_frames=append(lib.num_frames, [two], torch.int64),
+        lengths=append(lib.lengths, [np.float32(1.0 / 30.0)]),
+        fps=append(lib.fps, [30.0]),
+        loop_modes=append(lib.loop_modes, [LOOP_CLAMP], torch.int64),
+        weights=append(lib.weights, [0.0]),
+        root_pos_delta=torch.cat([lib.root_pos_delta,
+                                  torch.zeros((1, 3), device=dev)]),
+        terrain_hf=torch.as_tensor(hf_stack, device=dev),
+        terrain_maxmin=torch.as_tensor(mm_stack, device=dev),
+        terrain_min_point=torch.cat([
+            lib.terrain_min_point,
+            terrain.min_point.to(dev, torch.float32).reshape(1, 2)]),
+    )

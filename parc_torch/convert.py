@@ -16,6 +16,7 @@ import torch
 from parc_torch.anim import motion_lib as ml
 from parc_torch.envs.base import EnvState
 from parc_torch.envs.deepmimic import ResetPool
+from parc_torch.envs.parkour import ParkourResetPool, ParkourState
 from parc_torch.learning import normalizer as norm_lib
 from parc_torch.learning import ppo
 from parc_torch.learning.networks import ActorCritic, _NET_REGISTRY
@@ -25,6 +26,7 @@ _SIM_FIELDS = tuple(f for f in engine.SimState.__dataclass_fields__)
 _LIB_FIELDS = tuple(f for f in ml.MotionLib.__dataclass_fields__)
 _INDEX_FIELDS = ("motion_ids", "done", "start_idx", "num_frames",
                  "loop_modes")
+_BUFFER_FIELDS = ("ref_frames34", "ref_contacts", "target_xy")
 
 
 def _tensor(name: str, x, device) -> torch.Tensor:
@@ -51,6 +53,8 @@ def flax_state_dict(params) -> Dict[str, torch.Tensor]:
     ReLU alternate), and each (in, out) kernel becomes an (out, in)
     weight. The tree may hold its top-level ``"params"`` key or not."""
     p = params.get("params", params)
+    if "RayConvTokenizer_0" in p:
+        return vision_state_dict(p)
     out = {}
 
     def dense(prefix, d):
@@ -139,59 +143,107 @@ def agent_state_from_numpy(agent: ppo.PPOAgent, state: ppo.AgentState,
     return ppo.merge_persistent(agent, state, persistent_from_numpy(tree))
 
 
+class _StateDict(dict):
+    """A state_dict under construction from flax layouts: a Dense (in,
+    out) kernel becomes an (out, in) weight; a Conv HWIO kernel an OIHW
+    weight; an attention q/k/v kernel (d, heads, head_dim) a (heads *
+    head_dim, d) weight and its (heads, head_dim) bias a flat one; the
+    attention output kernel (heads, head_dim, d) a (d, heads * head_dim)
+    weight; a LayerNorm's scale its weight."""
+
+    def put(self, name, x, fn=lambda a: a):
+        self[name] = torch.as_tensor(np.array(fn(np.asarray(x)), np.float32))
+
+    def dense(self, prefix, d):
+        self.put(f"{prefix}.weight", d["kernel"], lambda k: k.T)
+        self.put(f"{prefix}.bias", d["bias"])
+
+    def conv(self, prefix, d):
+        self.put(f"{prefix}.weight", d["kernel"],
+                 lambda k: k.transpose(3, 2, 0, 1))
+        self.put(f"{prefix}.bias", d["bias"])
+
+    def encoder_layer(self, pre, attn, norms, denses):
+        """An ``EncoderLayer`` from a flax MultiHeadDotProductAttention,
+        its two LayerNorms and its FFN's two Denses."""
+        for proj in ("query", "key", "value"):
+            self.put(f"{pre}.{proj}.weight", attn[proj]["kernel"],
+                     lambda a: a.reshape(a.shape[0], -1).T)
+            self.put(f"{pre}.{proj}.bias", attn[proj]["bias"],
+                     lambda a: a.reshape(-1))
+        self.put(f"{pre}.out.weight", attn["out"]["kernel"],
+                 lambda a: a.reshape(-1, a.shape[-1]).T)
+        self.put(f"{pre}.out.bias", attn["out"]["bias"])
+        for j in range(2):
+            self.put(f"{pre}.norm_{j}.weight", norms[j]["scale"])
+            self.put(f"{pre}.norm_{j}.bias", norms[j]["bias"])
+            self.dense(f"{pre}.dense_{j}", denses[j])
+
+
+def vision_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A flax ``DMCnnMlp`` or ``DMViT`` param tree (or a tree of the same
+    structure, such as optax's momentum ``trace``) as the port's
+    ``learning.vision_nets`` ``state_dict``. flax numbers each module type
+    in creation order: the tokenizer, then (CNN-MLP) the trunk's Denses and
+    the two heads, or (ViT) one Dense per non-hf segment, each layer's
+    attention, LayerNorms and FFN Denses, and the two heads."""
+    p = params.get("params", params)
+    out = _StateDict()
+    tok = p["RayConvTokenizer_0"]
+    for i in range(3):
+        out.conv(f"tokenizer.conv.{i}", tok[f"Conv_{i}"])
+    out.dense("tokenizer.dense", tok["Dense_0"])
+    n_dense = sum(k.startswith("Dense_") for k in p)
+    if "cls" not in p:  # DMCnnMlp
+        for i in range(n_dense - 2):
+            out.dense(f"trunk.{i}", p[f"Dense_{i}"])
+    else:
+        n_layers = sum(k.startswith("MultiHeadDotProductAttention_")
+                       for k in p)
+        n_seg = n_dense - 2 * n_layers - 2
+        for i in range(n_seg):
+            out.dense(f"seg_dense.{i}", p[f"Dense_{i}"])
+        out.put("cls", p["cls"])
+        out.put("pos", p["pos"])
+        for i in range(n_layers):
+            out.encoder_layer(
+                f"layers.{i}", p[f"MultiHeadDotProductAttention_{i}"],
+                [p[f"LayerNorm_{2 * i + j}"] for j in range(2)],
+                [p[f"Dense_{n_seg + 2 * i + j}"] for j in range(2)])
+    out.dense("mean_head", p[f"Dense_{n_dense - 2}"])
+    out.dense("value_head", p[f"Dense_{n_dense - 1}"])
+    return dict(out)
+
+
 def mdm_params_from_numpy(params) -> Dict[str, torch.Tensor]:
     """A flax ``MDMTransformer`` param tree (or a tree of the same
     structure, such as adam's ``mu`` and ``nu``) as the port's
-    ``MDMTransformer`` ``state_dict``. Layouts: a Dense (in, out) kernel
-    becomes an (out, in) weight; a Conv HWIO kernel an OIHW weight; an
-    attention q/k/v kernel (d, heads, head_dim) a (heads * head_dim, d)
-    weight and its (heads, head_dim) bias a flat one; the attention output
-    kernel (heads, head_dim, d) a (d, heads * head_dim) weight; a
-    LayerNorm's scale its weight. The tree may hold its top-level
-    ``"params"`` key or not."""
+    ``MDMTransformer`` ``state_dict`` (the layouts of ``_StateDict``). The
+    tree may hold its top-level ``"params"`` key or not."""
     p = params.get("params", params)
-    out = {}
-
-    def put(name, x, fn=lambda a: a):
-        out[name] = torch.as_tensor(np.array(fn(np.asarray(x)), np.float32))
-
-    def dense(prefix, d):
-        put(f"{prefix}.weight", d["kernel"], lambda k: k.T)
-        put(f"{prefix}.bias", d["bias"])
+    out = _StateDict()
 
     def mlp(prefix, tree):
         for i in range(len(tree)):
-            dense(f"{prefix}.dense.{i}", tree[f"Dense_{i}"])
+            out.dense(f"{prefix}.dense.{i}", tree[f"Dense_{i}"])
 
     for name in ("t_mlp", "target_mlp", "in_mlp", "out_mlp"):
         mlp(name, p[name])
     tok = p["hf_tokenizer"]
     for i in range(4):
-        put(f"hf_tokenizer.conv.{i}.weight", tok[f"Conv_{i}"]["kernel"],
-            lambda k: k.transpose(3, 2, 0, 1))
-        put(f"hf_tokenizer.conv.{i}.bias", tok[f"Conv_{i}"]["bias"])
-    dense("hf_tokenizer.dense", tok["Dense_0"])
-    put("prev_noise_ind", p["prev_noise_ind"])
-    put("pos_embed", p["pos_embed"])
+        out.conv(f"hf_tokenizer.conv.{i}", tok[f"Conv_{i}"])
+    out.dense("hf_tokenizer.dense", tok["Dense_0"])
+    out.put("prev_noise_ind", p["prev_noise_ind"])
+    out.put("pos_embed", p["pos_embed"])
     i = 0
     while f"layers_{i}" in p:
-        layer, pre = p[f"layers_{i}"], f"layers.{i}"
-        attn = layer["MultiHeadDotProductAttention_0"]
-        for proj in ("query", "key", "value"):
-            k = attn[proj]["kernel"]
-            put(f"{pre}.{proj}.weight", k,
-                lambda a: a.reshape(a.shape[0], -1).T)
-            put(f"{pre}.{proj}.bias", attn[proj]["bias"],
-                lambda a: a.reshape(-1))
-        put(f"{pre}.out.weight", attn["out"]["kernel"],
-            lambda a: a.reshape(-1, a.shape[-1]).T)
-        put(f"{pre}.out.bias", attn["out"]["bias"])
-        for j in range(2):
-            put(f"{pre}.norm_{j}.weight", layer[f"LayerNorm_{j}"]["scale"])
-            put(f"{pre}.norm_{j}.bias", layer[f"LayerNorm_{j}"]["bias"])
-            dense(f"{pre}.dense_{j}", layer[f"Dense_{j}"])
+        layer = p[f"layers_{i}"]
+        out.encoder_layer(f"layers.{i}",
+                          layer["MultiHeadDotProductAttention_0"],
+                          [layer[f"LayerNorm_{j}"] for j in range(2)],
+                          [layer[f"Dense_{j}"] for j in range(2)])
         i += 1
-    return out
+    return dict(out)
 
 
 def _adam_state(opt_state):
@@ -268,3 +320,24 @@ def reset_pool_from_numpy(pool, device="cpu",
         times=_tensor("times", _get(pool, "times"), device),
         obs=_tensor("obs", _get(pool, "obs"), device),
         k=int(_get(pool, "k") if k is None else k))
+
+
+def parkour_state_from_numpy(state, device="cpu") -> ParkourState:
+    """A ParkourState from a tree with the same field names (the replan
+    timer becomes a Python int)."""
+    base = env_state_from_numpy(state, device)
+    return ParkourState(
+        **vars(base),
+        **{f: _tensor(f, _get(state, f), device)
+           for f in _BUFFER_FIELDS + ("ref_synthetic",)},
+        replan_timer=int(np.asarray(_get(state, "replan_timer"))))
+
+
+def parkour_reset_pool_from_numpy(pool, device="cpu",
+                                  k: Optional[int] = None
+                                  ) -> ParkourResetPool:
+    """A ParkourResetPool from a tree with the same field names."""
+    base = reset_pool_from_numpy(pool, device, k)
+    return ParkourResetPool(
+        **vars(base),
+        **{f: _tensor(f, _get(pool, f), device) for f in _BUFFER_FIELDS})

@@ -458,6 +458,37 @@ class DeepMimicEnv:
                             pose_err, dof_vel_err, root_vel_err,
                             root_ang_err], dim=-1)
 
+    def _physics(self, lib: ml.MotionLib, state: EnvState,
+                 actions: torch.Tensor) -> engine.SimState:
+        """One control step of the physics; each env collides with its
+        motion's terrain in the lib's stack."""
+        batched_terrain = terrain_lib.Terrain(
+            hf=lib.terrain_hf,
+            hf_mask=torch.zeros_like(lib.terrain_hf, dtype=torch.bool),
+            hf_maxmin=lib.terrain_maxmin,
+            min_point=lib.terrain_min_point,
+            dxdy=lib.terrain_dxdy)
+        return engine.control_step(
+            self.model, self.sim_params, batched_terrain, state.sim, actions,
+            sim_steps=self.cfg.sim_steps_per_control,
+            terrain_idx=state.motion_ids)
+
+    def _fail_rate_ema(self, lib: ml.MotionLib, state: EnvState,
+                       done: torch.Tensor) -> torch.Tensor:
+        """The per-motion fail-rate EMA after a step's done flags
+        (per-motion sums by index_add_)."""
+        is_done = (done != DoneFlags.NULL).float()
+        is_fail = (done == DoneFlags.FAIL).float()
+        m = lib.num_motions
+        cnt = self._zeros(m).index_add_(0, state.motion_ids, is_done)
+        fails = self._zeros(m).index_add_(0, state.motion_ids,
+                                          is_fail * is_done)
+        obs_rate = fails / torch.clamp(cnt, min=1.0)
+        ema = self.cfg.fail_rate_ema
+        return torch.where(cnt > 0,
+                           ema * state.fail_rates + (1 - ema) * obs_rate,
+                           state.fail_rates)
+
     # ------------------------------------------------------------------
     # Step
     # ------------------------------------------------------------------
@@ -477,17 +508,7 @@ class DeepMimicEnv:
         if reset_pool is None and generator is None:
             raise ValueError("step needs a reset_pool or a generator")
         cfg = self.cfg
-        batched_terrain = terrain_lib.Terrain(
-            hf=lib.terrain_hf,
-            hf_mask=torch.zeros_like(lib.terrain_hf, dtype=torch.bool),
-            hf_maxmin=lib.terrain_maxmin,
-            min_point=lib.terrain_min_point,
-            dxdy=lib.terrain_dxdy)
-
-        sim = engine.control_step(
-            self.model, self.sim_params, batched_terrain, state.sim, actions,
-            sim_steps=cfg.sim_steps_per_control,
-            terrain_idx=state.motion_ids)
+        sim = self._physics(lib, state, actions)
 
         time = state.time + cfg.control_dt
         motion_times = state.motion_times + cfg.control_dt
@@ -502,18 +523,8 @@ class DeepMimicEnv:
         track_err = self._tracking_error(state, ref, ref_body_pos,
                                          ref_body_rot)
 
-        # fail-rate EMA per motion (per-motion sums by index_add_)
         is_done = done != DoneFlags.NULL
-        is_fail = (done == DoneFlags.FAIL).float()
-        m = lib.num_motions
-        cnt = self._zeros(m).index_add_(0, state.motion_ids, is_done.float())
-        fails = self._zeros(m).index_add_(0, state.motion_ids,
-                                          is_fail * is_done.float())
-        obs_rate = fails / torch.clamp(cnt, min=1.0)
-        ema = cfg.fail_rate_ema
-        fail_rates = torch.where(cnt > 0,
-                                 ema * state.fail_rates + (1 - ema) * obs_rate,
-                                 state.fail_rates)
+        fail_rates = self._fail_rate_ema(lib, state, done)
 
         obs = self._compute_obs(lib, state)
 

@@ -106,6 +106,21 @@ def num_points(cfg) -> int:
     return local_pattern(cfg).shape[0]
 
 
+def hf_shape(cfg) -> tuple:
+    """2-D (rows, cols) layout of the flat hf obs, for the vision
+    policies' conv tokenizer (learning/vision_nets.py)."""
+    mode = getattr(cfg, "terrain_obs_mode", "HF_RAY")
+    if mode == "HF_RAY":
+        return (2 * cfg.ray_num_side + 1,
+                cfg.ray_points_behind + cfg.ray_points_ahead + 1)
+    if mode == "HF_GRID":
+        return (cfg.grid_num_x_neg + cfg.grid_num_x_pos + 1,
+                cfg.grid_num_y_neg + cfg.grid_num_y_pos + 1)
+    if mode == "HF_GRID_C2F":
+        return (2 * cfg.c2f_num_x + 1, 2 * cfg.c2f_num_y + 1)
+    raise ValueError(f"unknown terrain_obs_mode {mode!r}; one of {MODES}")
+
+
 def sample_points(root_pos: torch.Tensor, root_rot: torch.Tensor,
                   pattern: torch.Tensor) -> torch.Tensor:
     """World xy sample points: heading-rotate + translate the pattern.

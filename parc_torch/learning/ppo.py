@@ -171,8 +171,22 @@ class PPOAgent:
         self.a_mid = (hi + lo) / 2.0
         self.a_scale = (hi - lo) / 2.0
 
-    def _build_net(self, generator) -> ActorCritic:
+    def _build_net(self, generator) -> torch.nn.Module:
+        """The actor-critic net of ``cfg.actor_net``: the vision policies
+        (``dm_cnn_mlp``, ``dm_vit``: one trunk for both heads, fixed std)
+        or an MLP ActorCritic."""
         cfg = self.cfg
+        if cfg.actor_net in ("dm_cnn_mlp", "dm_vit"):
+            from parc_torch.envs import perception
+            from parc_torch.learning import vision_nets
+            cls = (vision_nets.DMCnnMlp if cfg.actor_net == "dm_cnn_mlp"
+                   else vision_nets.DMViT)
+            return cls(self.env.action_dim, self.env.obs_layout,
+                       perception.hf_shape(self.env.cfg),
+                       action_std=cfg.action_std,
+                       actor_init_output_scale=cfg.actor_init_output_scale,
+                       generator=generator, device=self.device,
+                       compute_dtype=self.compute_dtype)
         return ActorCritic(
             self.env.obs_dim, self.env.action_dim,
             actor_net=cfg.actor_net, critic_net=cfg.critic_net,
@@ -251,7 +265,8 @@ class PPOAgent:
             action = self._action_from_norm(norm_a)
             if pool is not None:
                 es = self.env.step(lib, es, action, reset_pool=pool,
-                                   pool_slot=reset_counts % pool_k)
+                                   pool_slot=reset_counts % pool_k,
+                                   generator=g)
                 reset_counts += (es.done != DoneFlags.NULL).long()
             else:
                 es = self.env.step(lib, es, action, generator=g)
@@ -272,8 +287,7 @@ class PPOAgent:
     # ------------------------------------------------------------------
     def _loss(self, norm_obs, norm_a, old_logp, adv, tar_val, rand_mask):
         cfg = self.cfg
-        mean, logstd = self.net.actor(norm_obs)
-        pred_val = self.net.critic(norm_obs)
+        mean, logstd, pred_val = self.net(norm_obs)
 
         critic_loss = torch.mean((tar_val - pred_val) ** 2)
 

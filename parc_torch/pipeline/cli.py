@@ -10,7 +10,7 @@ Stages (those of the JAX package's CLI ported so far):
     python -m parc_torch.pipeline.cli optimize --motions_dir K --out_dir O
     python -m parc_torch.pipeline.cli augment --motions_dir K --out_dir A
     python -m parc_torch.pipeline.cli train_tracker --dataset m.yaml \
-        --out_dir T
+        --out_dir T [--env_name parkour --mdm_dir M]
     python -m parc_torch.pipeline.cli record --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli eval --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli setup_iter --root R --iter N
@@ -27,34 +27,13 @@ import argparse
 import dataclasses
 import glob
 import os
-import typing
 
 import numpy as np
 import torch
 import yaml
 
 from parc_torch import resolve_device
-
-
-def _dataclass_from_dict(cls, d: dict):
-    """Build a (possibly nested) config dataclass from a flat YAML dict.
-
-    Nested dicts become nested dataclasses, and numeric strings are coerced
-    to the field's type: PyYAML parses ``1.0e9`` (exponent without a sign)
-    as a *string*, a silent trap for hand-written configs."""
-    hints = typing.get_type_hints(cls)
-    kwargs = {}
-    for f in dataclasses.fields(cls):
-        if f.name not in d:
-            continue
-        v = d[f.name]
-        t = hints.get(f.name)
-        if dataclasses.is_dataclass(t) and isinstance(v, dict):
-            v = _dataclass_from_dict(t, v)
-        elif t in (float, int) and isinstance(v, str):
-            v = t(float(v))
-        kwargs[f.name] = v
-    return cls(**kwargs)
+from parc_torch.utils.config import dataclass_from_dict
 
 
 def _load_config(args) -> dict:
@@ -77,46 +56,55 @@ def _build_model(device):
     return humanoid_spec().build(device=device)
 
 
-def _build_env(model, cfg: dict, device, **overrides):
-    """The tracker env of ``cfg["env_name"]`` (default "deepmimic"); the
-    remaining keys fill EnvConfig / SimParams fields by name."""
+def _tracking_env(model, cfg: dict, device, **overrides):
+    """The env that ``record`` and ``eval`` run a tracker in, whatever it
+    was trained in: the deepmimic env on the dataset clips, with default
+    physics (``SimParams()``) and the EnvConfig fields of ``cfg``
+    (``overrides`` replace some)."""
     from parc_torch.envs.base import EnvConfig
     from parc_torch.envs.deepmimic import DeepMimicEnv
     from parc_torch.physics import engine
-    name = cfg.get("env_name", "deepmimic")
-    if name in ("parkour", "mgdm"):
-        raise NotImplementedError(
-            f"env_name {name!r} is not ported yet: parc_torch trains the "
-            f"deepmimic env only (the parkour and mgdm envs are a later "
-            f"slice)")
-    if name != "deepmimic":
-        raise KeyError(f"unknown env_name {name!r}")
-    env_cfg = dataclasses.replace(_dataclass_from_dict(EnvConfig, cfg),
+    env_cfg = dataclasses.replace(dataclass_from_dict(EnvConfig, cfg),
                                   **overrides)
-    sim_params = _dataclass_from_dict(engine.SimParams, cfg.get("sim", cfg))
-    return DeepMimicEnv(model, sim_params, env_cfg, device=device)
+    return DeepMimicEnv(model, engine.SimParams(), env_cfg, device=device)
 
 
 def stage_create_dataset(cfg: dict):
     from parc_torch.pipeline import dataset
     out = dataset.create_dataset_yaml(
         cfg["motions_dir"], cfg.get("out", "output/motions.yaml"),
-        _dataclass_from_dict(dataset.DatasetConfig, cfg),
+        dataclass_from_dict(dataset.DatasetConfig, cfg),
         device=_device(cfg))
     print(f"wrote {out}")
 
 
 def stage_train_tracker(cfg: dict):
-    """Tracker training (parc_3) on the dataset clips (``env_name:
-    deepmimic``)."""
+    """Tracker training (parc_3). ``env_name: deepmimic`` (default) trains
+    on the dataset clips; ``parkour`` trains the composition env (a dm
+    fraction on the dataset clips, an mgdm fraction of ``mgdm_num`` envs
+    tracking references that the MDM of ``mdm_dir`` generates online);
+    ``mgdm`` trains on generated references only."""
+    from parc_torch.envs import builder
     from parc_torch.learning.ppo import PPOAgent, PPOConfig
     from parc_torch.pipeline import dataset, train_tracker
     dev = _device(cfg)
     model = _build_model(dev)
     lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
-    env = _build_env(model, cfg, dev)
-    agent = PPOAgent(env, _dataclass_from_dict(PPOConfig, cfg), device=dev)
-    tcfg = _dataclass_from_dict(train_tracker.TrainerConfig, cfg)
+    mdm = mdm_state = None
+    if cfg.get("env_name") in ("parkour", "mgdm"):
+        from parc_torch.diffusion.mdm import MDM, MDMConfig
+        from parc_torch.utils import checkpoint as ckpt_lib
+        mdm = MDM(model, dataclass_from_dict(MDMConfig, cfg), device=dev)
+        mdm_state = mdm.init(lib, torch.Generator(device=dev).manual_seed(0),
+                             stats_samples=256)
+        if cfg.get("mdm_dir"):
+            mdm_state = mdm.merge_persistent(mdm_state, ckpt_lib.restore(
+                f"{cfg['mdm_dir']}/checkpoints", map_location=dev))
+    env = builder.build_env(model, cfg, mdm=mdm, device=dev)
+    agent = PPOAgent(env, dataclass_from_dict(PPOConfig, cfg), device=dev)
+    if mdm is not None:
+        lib = env.make_lib(lib, mdm_state)
+    tcfg = dataclass_from_dict(train_tracker.TrainerConfig, cfg)
     if cfg.get("out_dir"):
         tcfg = dataclasses.replace(tcfg, output_dir=cfg["out_dir"])
     return train_tracker.train(agent, lib, tcfg, seed=cfg.get("seed", 0),
@@ -134,8 +122,8 @@ def stage_train_mdm(cfg: dict):
     seed = cfg.get("seed", 0)
     model = _build_model(dev)
     lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
-    mdm = MDM(model, _dataclass_from_dict(MDMConfig, cfg), device=dev)
-    tcfg = _dataclass_from_dict(train_mdm.MDMTrainerConfig, cfg)
+    mdm = MDM(model, dataclass_from_dict(MDMConfig, cfg), device=dev)
+    tcfg = dataclass_from_dict(train_mdm.MDMTrainerConfig, cfg)
     if cfg.get("out_dir"):
         tcfg = dataclasses.replace(tcfg, output_dir=cfg["out_dir"])
     # warm start: PARC iterations k>1 continue training the previous
@@ -181,11 +169,14 @@ def _restored_agent(cfg: dict, lib, env, seed: int):
     from parc_torch.learning.ppo import PPOAgent, PPOConfig
     from parc_torch.utils import checkpoint as ckpt_lib
     dev = env.device
-    agent = PPOAgent(env, _dataclass_from_dict(PPOConfig, cfg), device=dev)
+    agent = PPOAgent(env, dataclass_from_dict(PPOConfig, cfg), device=dev)
     state = agent.init(lib, torch.Generator(device=dev).manual_seed(seed))
     restored = ckpt_lib.restore(f"{cfg['tracker_dir']}/checkpoints",
                                 step=_select_checkpoint_step(cfg),
                                 map_location=dev)
+    # a parkour/mgdm tracker's fail rates carry the appended terrain slot
+    # last: the dataset's motions come first
+    restored["fail_rates"] = restored["fail_rates"][:lib.num_motions]
     return agent, ppo_lib.merge_persistent(agent, state, restored)
 
 
@@ -194,10 +185,10 @@ def stage_record(cfg: dict):
     dev = _device(cfg)
     model = _build_model(dev)
     lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
-    env = _build_env(model, cfg, dev, num_envs=lib.num_motions,
-                     rand_reset=False)
+    env = _tracking_env(model, cfg, dev, num_envs=lib.num_motions,
+                        rand_reset=False)
     agent, state = _restored_agent(cfg, lib, env, seed=0)
-    rcfg = _dataclass_from_dict(record.RecordConfig, cfg)
+    rcfg = dataclass_from_dict(record.RecordConfig, cfg)
     results = record.record_motions(agent, lib, state, rcfg)
     paths = record.save_recorded(results,
                                  cfg.get("out_dir", "output/recorded"))
@@ -216,7 +207,7 @@ def stage_eval(cfg: dict):
     seed = cfg.get("seed", 0)
     model = _build_model(dev)
     lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
-    env = _build_env(model, cfg, dev)
+    env = _tracking_env(model, cfg, dev)
     agent, state = _restored_agent(cfg, lib, env, seed=seed)
     test_fn = train_tracker.make_test_fn(
         agent, cfg.get("test_steps", 300),
@@ -261,7 +252,7 @@ def stage_kin_gen(cfg: dict):
     dev = _device(cfg)
     model = _build_model(dev)
     lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
-    mdm = MDM(model, _dataclass_from_dict(MDMConfig, cfg), device=dev)
+    mdm = MDM(model, dataclass_from_dict(MDMConfig, cfg), device=dev)
     state = mdm.init(lib, torch.Generator(device=dev).manual_seed(0),
                      stats_samples=512)
     if cfg.get("mdm_dir"):
@@ -273,7 +264,7 @@ def stage_kin_gen(cfg: dict):
     prefix = f"b{batch_idx}_" if num_batches > 1 else ""
     paths = kin_gen.run_kin_gen(
         mdm, state, num_motions, cfg.get("out_dir", "output/kin_gen"),
-        _dataclass_from_dict(kin_gen.KinGenConfig, cfg),
+        dataclass_from_dict(kin_gen.KinGenConfig, cfg),
         seed=cfg.get("seed", 0) + batch_idx * num_motions,
         name_prefix=prefix)
     print(f"generated {len(paths)} clips")
@@ -330,7 +321,7 @@ def stage_augment(cfg: dict):
     model = _build_model(_device(cfg))
     files = _clip_files(cfg["motions_dir"])
     motions = [md.load_motion_data(f) for f in files]
-    acfg = _dataclass_from_dict(augment.AugmentConfig, cfg)
+    acfg = dataclass_from_dict(augment.AugmentConfig, cfg)
     if cfg.get("num_motions"):
         acfg = dataclasses.replace(acfg, num_new_motions=cfg["num_motions"])
     paths = augment.run_augment(model, motions,
@@ -350,7 +341,7 @@ def stage_optimize(cfg: dict):
     model = _build_model(dev)
     out_dir = cfg.get("out_dir", "output/optimized")
     os.makedirs(out_dir, exist_ok=True)
-    ocfg = _dataclass_from_dict(motion_opt.MotionOptConfig, cfg)
+    ocfg = dataclass_from_dict(motion_opt.MotionOptConfig, cfg)
     written = {}
     for f in _clip_files(cfg["motions_dir"]):
         m = md.load_motion_data(f)

@@ -203,7 +203,9 @@ def train(agent: PPOAgent, lib: ml.MotionLib,
           meta: Optional[dict] = None) -> AgentState:
     """Train until ``cfg.max_samples`` samples or ``max_iters`` iterations
     in all (a resumed run counts the iterations of its checkpoint, so
-    re-invoking a finished run with the same ``max_iters`` is a no-op)."""
+    re-invoking a finished run with the same ``max_iters`` is a no-op).
+    ``lib`` is whatever the agent's env takes: a MotionLib, or the parkour
+    env's ``ParkourLib`` bundle."""
     dev = agent.device
     logger = Logger(output_file=f"{cfg.output_dir}/log.tsv",
                     use_wandb=cfg.use_wandb)

@@ -24,6 +24,7 @@ from parc_torch.anim import motion_lib as tml
 from parc_torch.data import synthetic as tsyn
 from parc_torch.data.humanoid import humanoid_spec as tspec
 from parc_torch.envs import base as tbase
+from parc_torch.envs import builder
 from parc_torch.envs import deepmimic as tdm
 from parc_torch.learning import ppo as tppo
 from parc_torch.physics import engine as te
@@ -144,9 +145,11 @@ def test_cli_chain(tmp_path, capsys):
     assert report["weights"]["actor_trunk/Dense_0"]["max_rank"] == 512
     out = capsys.readouterr().out
     assert "recorded" in out and "network diagnostics" in out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["train_tracker", "--dataset", ds, "--out_dir", tracker,
-                  "--env_name", "parkour"] + common)
+    # the parkour and mgdm envs train through this stage too
+    # (tests/test_torch_parkour_cli.py); an unknown env name is refused
+    with pytest.raises(KeyError, match="unknown env_name"):
+        builder.build_env(cli._build_model("cpu"), {"env_name": "nope"},
+                          device="cpu")
 
 
 def _motions_dir(root):
