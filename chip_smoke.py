@@ -70,18 +70,19 @@ Phases, each printing one line of facts:
    kernel (the JAX package runs its denoiser outside Pallas too);
 8. kinematic generation (parc_2) from phase 7's checkpoint on phase 5's
    dataset, at KinGenConfig() width (boxes terrains of 32 x 32 cells at
-   0.4 m, 32 rollouts a terrain, top-2, 500 Adam iterations, mirroring) with
-   the MDM at MDMConfig() (bf16 encoder), the keep thresholds at infinity
-   so that keep -> optimize -> mirror -> save runs on a 200-step MDM; run
-   length cut from 10 s: (a) ``kin_gen`` through the CLI, 2 motion slots
+   0.4 m, 32 rollouts a terrain, top-2, mirroring) with the MDM at
+   MDMConfig() (bf16 encoder), the keep thresholds at infinity so that
+   keep -> optimize -> mirror -> save runs on a 200-step MDM; run length
+   cut from 10 s and the contact optimization from 500 Adam iterations to
+   250: (a) ``kin_gen`` through the CLI, 2 motion slots
    with 2 terrains a batch (64 rows a denoise step), 5 s paths; (b) the
    sequential mode once, 1 slot, 2 s; each with its seconds, windows, rows,
    frames generated per second, denoiser calls (gated at windows x 201),
    native A* ms per plan, the contact optimization's ms per Adam iteration
    and its summed loss before and after (gated: finite, not raised), how
    many rollouts the default thresholds would have kept, and no physics
-   launch; (c) ``optimize`` on two of (a)'s clips (500 of its default 3,000
-   iterations), ``augment`` (2 motions, 200 of 1,000 iterations),
+   launch; (c) ``optimize`` on two of (a)'s clips (250 of its default 3,000
+   iterations), ``augment`` (2 motions, 100 of 1,000 iterations),
    ``setup_iter``, and ``create_dataset`` over every output, each listed
    clip reloaded equal to what its stage saved; (d) f32 (bf16 off) on the
    card against the CPU: one window of generate_frames_along_path (8 rows,
@@ -104,15 +105,51 @@ Phases, each printing one line of facts:
    and denoiser calls (gated); a control step with and without a replan,
    a replan's device busy time and idle share; the peak device memory; a
    checkpoint whose fail rates carry the terrain slot; (b) the kernel
-   against the plain version, as in phase 3, on the parkour state after a
-   replan, the mgdm rows on the platform slot of the grown terrain stack;
+   against the plain version, as in phase 3, on 6 successive control
+   steps of the parkour env from the state after a replan, the mgdm rows
+   on the platform slot of the grown terrain stack;
    (c) one train_iter each of the vision policies (dm_cnn_mlp, dm_vit,
    bf16 trunks) on that env at 4096 envs, an act call's ms, and a forward
    pass bf16 against f32 within (0, 2e-2) relative; (d) ``record`` (one
    env per clip, one start fraction) and ``eval`` (64 envs) from 9a's
    checkpoint with the parkour config, both gated to build the deepmimic
    env with SimParams(). The vision nets and the replans reach no
-   hand-written kernel (the JAX package runs them outside Pallas too).
+   hand-written kernel (the JAX package runs them outside Pallas too);
+10. data parallelism over torch.distributed (one process a rank, started
+   by ``python -m torch.distributed.run``; the ranks rerun this script with
+   ``--dp-worker``): (a) 2 ranks on the one card over gloo (NCCL refuses
+   two ranks on one GPU), 2048 envs each at PPOConfig() widths in f32 on
+   tests/test_torch_ppo.py's deterministic setup (one standing clip, 4
+   steps an iteration, no random reset, no action noise, one minibatch an
+   epoch), 2 iterations, each against one process's iteration at 4096
+   envs from the same state: the normalizer, sample count, fail rates,
+   parameters, momentum and metrics at that file's tolerances, the ranks
+   bit-identical, check_param_sync 0, one launch a step on every rank,
+   and one control step of each rank's 2048 envs through the kernel
+   against the plain version (as in phase 3); the one process's free run
+   of both iterations is printed beside them, and its second iteration
+   run again from its own state, as it was and with the parameters moved
+   by the ranks' first-iteration gap in random signs;
+   (b) ``train_tracker --env_name parkour``
+   through the CLI under torchrun, 2 ranks on the card over gloo, 4096
+   envs and 512 mgdm rows in all, from phase 7's MDM, 2 iterations: each
+   rank's replans counted and on the same steps, fail rates and
+   parameters bit-identical, only rank 0 writing a log and a checkpoint,
+   which restores into a one-process eval; one control step of each
+   rank's final state (2048 envs, 256 mgdm rows) through the kernel
+   against the plain version (as in phase 3); per rank and in all the
+   seconds an iteration and samples/s beside phase 9a's, the peak memory
+   per rank; (c) with two cards or more, (a) over NCCL, one rank a card;
+   with one, a world-size-1 NCCL group's all_reduce and broadcast on the
+   card.
+Phase 3g, after phase 3: the quadruped (13 bodies, 12 hinge dofs, 36
+contact points) at 4096 envs near its standing pose in a bumpy stacked
+terrain, drawn on the CPU from 6 seeds: the kernel against the plain
+version in pd_implicit and pd_1d with the ~11 kg robot's contact
+parameters (judged as in phase 3, at 2x on the state), its time and
+bound; then 30 control steps of the stand through
+engine.control_step on the kernel (root height within 0.2-0.45 m) and 45
+of the passive collapse (below 0.2 m).
 The line before the last holds the kernel report as JSON; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 before that line; without CUDA the script exits non-zero and runs nothing.
@@ -123,7 +160,9 @@ import copy
 import csv
 import dataclasses
 import glob
+import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -138,6 +177,7 @@ from parc_torch.anim import char_model as cm
 from parc_torch.anim import motion_data as md
 from parc_torch.anim import motion_lib as ml
 from parc_torch.data.humanoid import humanoid_spec
+from parc_torch.data.quadruped import quadruped_spec, standing_pose_dof
 from parc_torch.data.synthetic import standing_clip, walking_clip
 from parc_torch.diffusion import gen as gen_lib
 from parc_torch.diffusion import sampler as sampler_lib
@@ -155,6 +195,7 @@ from parc_torch.pipeline import record, train_tracker
 from parc_torch.pipeline.kin_gen import KinGenConfig
 from parc_torch.utils import checkpoint as ckpt_lib
 from parc_torch.utils import profiling
+from parc_torch.utils import terrain as terrain_lib
 from parc_torch.utils.terrain import Terrain
 
 NUM_ENVS = 4096
@@ -165,6 +206,10 @@ WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 ROLLOUT_STEPS = 64
 ROLLOUT_RUNS = 5  # 64-step runs timed; the first is the counted main path
 ATOL = 2e-4  # tests/test_pallas.py:190-193
+# judge: float64's own move under input perturbations of RERUN_REL
+# relative, the largest of RERUN_DRAWS draws, excuses an env where it is as
+# large as the kernel's miss, in at most EXCUSE_SHARE of a check's envs
+RERUN_DRAWS, RERUN_REL, EXCUSE_SHARE = 8, 1e-6, 1e-3
 CONTACT_ATOL, CONTACT_RTOL = 2e-3, 1e-5  # tests/test_torch_engine.py
 H = 1.0 / 120.0
 LOWER = 0.04  # m the phase-3 states are lowered into their terrain
@@ -182,7 +227,8 @@ MDM_BF16_TOL, MDM_CPU_TOL = 2e-2, 1e-4  # phase 7b, relative max errors
 # phase 8: kin-gen at KinGenConfig() width; run length cut from 10 s
 KIN_MOTIONS, KIN_TERRAINS_PER_BATCH, KIN_SECONDS = 2, 2, 5.0  # 8a
 KIN_SEQ_SECONDS = 2.0  # 8b, one motion slot
-OPT_ITERS, AUG_MOTIONS, AUG_ITERS = 500, 2, 200  # 8c (defaults 3000, 1000)
+OPT_ITERS, AUG_MOTIONS, AUG_ITERS = 250, 2, 100  # 8c (defaults 3000, 1000)
+KIN_OPT_ITERS = 250  # 8a-b, kin_gen's contact optimization (default 500)
 KIN_CHECK_ROWS, KIN_CHECK_SEED = 8, 3  # 8d, 8e
 # 8d, card vs CPU in f32, relative max errors: a window's frames over a
 # box terrain, both given the CPU's local heightfield; the motion-opt loss
@@ -192,6 +238,11 @@ OPT_TERMS_TOL, OPT_GRAD_TOL = 1e-5, 1e-4
 # phase 9: the parkour env at 4096 envs, PARKOUR_MGDM of them mgdm rows;
 # its test rollout (and 9d's eval) cut from 300 steps
 PARKOUR_MGDM, PARKOUR_TEST_STEPS = 512, 100
+# 9b: the kernel-vs-plain check on this many successive control steps from
+# the state after a replan (that state depends on phase 7a's training, which
+# is not deterministic on the card; the spread over the steps is what a run
+# of this script can see of how the check varies)
+PARKOUR_CHECKS = 6
 
 
 def nvidia_smi() -> str:
@@ -330,37 +381,175 @@ def terrain_f64(terrain):
         min_point=terrain.min_point.double(), dxdy=terrain.dxdy.double())
 
 
-def contact_excess(got, want):
-    """max(|got - want| - CONTACT_RTOL |want|): what the contact forces'
-    error spends of the absolute tolerance."""
-    return ((got.double() - want.double()).abs()
-            - CONTACT_RTOL * want.double().abs()).max().item()
+def terrain_cpu(terrain):
+    return dataclasses.replace(terrain, **{
+        f.name: getattr(terrain, f.name).cpu()
+        for f in dataclasses.fields(terrain)
+        if isinstance(getattr(terrain, f.name), torch.Tensor)})
 
 
-def judge(state_err, contact_err, plain64, kernel64, what):
-    """Fail unless the kernel agrees with the plain version: the state
-    within 2e-4 and the contact forces within 2e-3 N + rtol 1e-5, or,
-    where f32 itself is less accurate than that, within twice the plain f32
-    version's own error against float64; and the kernel's own error against
-    float64 (or within the tolerance) at most 1.5x the plain version's on
-    the state and 2x on the contact forces. The contact forces pass
-    thresholds (a point in or out of contact, the force clamp, friction
-    saturation), so which of two f32 versions lands nearer float64 there
-    swings more from state to state: on the fallen characters of the
-    rollout's end the kernel was 1.55x, in phase 3b 0.86x."""
-    tol_s = max(ATOL, 2.0 * plain64["state"])
-    tol_c = max(CONTACT_ATOL, 2.0 * plain64["contact"])
-    ok = (state_err <= tol_s and contact_err <= tol_c
-          and kernel64["state"] <= max(ATOL, 1.5 * plain64["state"])
-          and kernel64["contact"] <= max(CONTACT_ATOL,
-                                         2.0 * plain64["contact"]))
-    if not ok:
-        raise AssertionError(
-            f"{what}: kernel disagrees with plain version: state "
-            f"{state_err} (tolerance {tol_s}), contact {contact_err} "
-            f"(tolerance {tol_c}); vs float64 kernel {kernel64}, plain "
-            f"{plain64}")
-    return tol_s, tol_c
+def env_errors(got, plain, cpu, want64, rerun):
+    """A kernel-vs-plain check, env by env, for judge. Each of ``got`` (the
+    kernel), ``plain`` (the plain f32 version on the card), ``cpu`` (the
+    same on the CPU) and ``want64`` (the plain version in float64) is a
+    pair (state (n, a), contact forces (n, b)), a row an env. The plain
+    version's error against float64 is the larger of its two evaluations:
+    the same f32 code on the two devices lands up to 6.3x apart from
+    float64 in the worst of 4096 envs (PERF.md, PR 7). ``rerun(envs)``
+    gives float64's own move in those envs under input perturbations
+    (rerun_moves). Also the whole-batch figures that the phases print."""
+    def dist(a, b):
+        return (a.double() - b.double().to(a.device)).abs().amax(1).cpu()
+
+    def excess(a, b):  # what the contact error spends of the tolerance
+        b = b.double().to(a.device)
+        return ((a.double() - b).abs()
+                - CONTACT_RTOL * b.abs()).amax(1).cpu()
+    e = dict(kp_s=dist(got[0], plain[0]), kp_c=excess(got[1], plain[1]),
+             k64_s=dist(got[0], want64[0]), k64_c=excess(got[1], want64[1]),
+             card_s=dist(plain[0], want64[0]),
+             card_c=excess(plain[1], want64[1]),
+             cpu_s=dist(cpu[0], want64[0]), cpu_c=excess(cpu[1], want64[1]))
+    e["p64_s"] = torch.maximum(e["card_s"], e["cpu_s"])
+    e["p64_c"] = torch.maximum(e["card_c"], e["cpu_c"])
+
+    def worst(k):
+        return e[k].max().item()
+    return dict(
+        env=e, rerun=rerun, state_err=worst("kp_s"),
+        contact_err=worst("kp_c"),
+        plain64_err={"state": worst("p64_s"), "contact": worst("p64_c"),
+                     "card": {"state": worst("card_s"),
+                              "contact": worst("card_c")},
+                     "cpu": {"state": worst("cpu_s"),
+                             "contact": worst("cpu_c")}},
+        kernel64_err={"state": worst("k64_s"), "contact": worst("k64_c")},
+        env64={"kernel": e["k64_s"], "plain": e["card_s"]},
+        q999={"kernel": torch.quantile(e["k64_s"], 0.999).item(),
+              "plain": torch.quantile(e["card_s"], 0.999).item()})
+
+
+def rerun_moves(step64, inputs):
+    """How far float64's own step moves in each env when its input moves
+    by RERUN_REL relative (about 8 f32 ulps), the largest over RERUN_DRAWS
+    draws: ``step64(inputs)`` -> (state (k, a), contact (k, b)) on float64
+    ``inputs`` (a list of tensors, a row an env; the first, the state, is
+    perturbed). Where a contact point sits at the threshold of contact,
+    this is as large as a wrong answer (PERF.md, PR 7)."""
+    base_s, base_c = step64(inputs)
+    g = torch.Generator(device=inputs[0].device).manual_seed(0)
+    move_s = torch.zeros(len(base_s), dtype=torch.float64)
+    move_c = torch.zeros_like(move_s)
+    for _ in range(RERUN_DRAWS):
+        x = inputs[0] * (1.0 + RERUN_REL * torch.randn(
+            inputs[0].shape, generator=g, device=inputs[0].device,
+            dtype=torch.float64))
+        s_, c_ = step64([x] + list(inputs[1:]))
+        move_s = torch.maximum(move_s, (s_ - base_s).abs().amax(1).cpu())
+        move_c = torch.maximum(move_c, (c_ - base_c).abs().amax(1).cpu())
+    return move_s, move_c
+
+
+def packed_check(args, got, got_c, model64, terrain64):
+    """env_errors of one packed control step (``args`` as
+    control_step_packed takes them; ``got`` its kernel output), and the
+    plain version's output on the card."""
+    model, params, terrain, state_p, const_p, tidx, sim_steps = args
+    want, want_c = sub.control_step_packed_reference(*args)
+    want64, want64_c = sub.control_step_packed_reference(
+        model64, params, terrain64, state_p.double(), const_p.double(),
+        tidx, sim_steps)
+    cpu, cpu_c = sub.control_step_packed_reference(
+        model.to("cpu"), params, terrain_cpu(terrain), state_p.cpu(),
+        const_p.cpu(), None if tidx is None else tidx.cpu(), sim_steps)
+
+    def step64(inputs):  # a row an env: the packed layout's columns
+        s_, c_ = sub.control_step_packed_reference(
+            model64, params, terrain64, inputs[0].T.contiguous(),
+            inputs[1].T.contiguous(), None if tidx is None else inputs[2],
+            sim_steps)
+        return s_.T, c_.T
+
+    def rerun(envs):
+        i = envs.to(state_p.device)
+        return rerun_moves(step64, [state_p.double().T[i],
+                                    const_p.double().T[i]]
+                           + ([] if tidx is None else [tidx[i]]))
+    c = env_errors((got.T, got_c.T), (want.T, want_c.T), (cpu.T, cpu_c.T),
+                   (want64.T, want64_c.T), rerun)
+    return c, want, want_c
+
+
+def judge(c, what, state_ratio=1.5):
+    """Fail unless the kernel agrees with the plain version (``c`` from
+    env_errors): the state within 2e-4 and the contact forces within
+    2e-3 N + rtol 1e-5, or, where f32 itself is less accurate than that,
+    within twice the plain f32 version's own error against float64 (the
+    larger of its evaluations on the card and on the CPU); and the
+    kernel's own error against float64 (or within the tolerance) at most
+    1.5x the plain version's on the state and 2x on the contact forces.
+    The contact forces pass thresholds (a point in or out of contact, the
+    force clamp, friction saturation), so which of two f32 versions lands
+    nearer float64 there swings more from state to state: on the fallen
+    characters of the rollout's end the kernel was 1.55x, in phase 3b
+    0.86x. ``state_ratio`` replaces the 1.5x on the state where the same
+    holds of the state (phase 3g).
+
+    An env that fails is excused only where float64 itself is unstable
+    there: with its input moved by RERUN_REL relative, float64's own step
+    moves by at least half the kernel's miss (each of the env's limits is
+    raised to twice that move); in at most EXCUSE_SHARE of the envs (at
+    least one), and the other envs' limits are then taken without them.
+    Returns (state tolerance, contact tolerance, {env: float64's moves})."""
+    e = c["env"]
+    n = len(e["kp_s"])
+
+    def limits(keep):
+        p_s = e["p64_s"][keep].max().item()
+        p_c = e["p64_c"][keep].max().item()
+        return (max(ATOL, 2.0 * p_s), max(CONTACT_ATOL, 2.0 * p_c),
+                max(ATOL, state_ratio * p_s), max(CONTACT_ATOL, 2.0 * p_c))
+
+    def failing(lim):
+        tol_s, tol_c, lim_s, lim_c = lim
+        return ((e["kp_s"] > tol_s) | (e["kp_c"] > tol_c)
+                | (e["k64_s"] > lim_s) | (e["k64_c"] > lim_c))
+
+    def fail(why):
+        return AssertionError(
+            f"{what}: kernel disagrees with plain version{why}: state "
+            f"{c['state_err']} (tolerance {lim[0]}), contact "
+            f"{c['contact_err']} (tolerance {lim[1]}); vs float64 kernel "
+            f"{c['kernel64_err']}, plain {c['plain64_err']}")
+    keep = torch.ones(n, dtype=torch.bool)
+    lim = limits(keep)
+    bad = failing(lim)
+    excused = {}
+    if bad.any():
+        envs = bad.nonzero().flatten()
+        if len(envs) > max(1, int(EXCUSE_SHARE * n)):
+            raise fail(f" in {len(envs)} of {n} envs")
+        move_s, move_c = c["rerun"](envs)
+        for j, env in enumerate(envs.tolist()):
+            raised = tuple(max(x, 2.0 * m.item()) for x, m in zip(
+                lim, (move_s[j], move_c[j], move_s[j], move_c[j])))
+            if failing(raised)[env]:
+                raise fail(f" in env {env}, where float64 itself moves "
+                           f"{move_s[j]:.3e} / {move_c[j]:.3e} under "
+                           f"{RERUN_REL} relative input perturbations")
+            excused[env] = (move_s[j].item(), move_c[j].item())
+        keep[envs] = False
+        lim = limits(keep)
+        if (failing(lim) & keep).any():
+            raise fail(f" past the excused envs {sorted(excused)}")
+        print(f"{what}: envs {sorted(excused)} excused: float64 itself "
+              f"moves " + ", ".join(f"{a:.3e} / {b:.3e}" for a, b in
+                                    excused.values())
+              + " (state / contact) under input perturbations of "
+              f"{RERUN_REL} relative; the kernel's miss there "
+              + ", ".join(f"{e['k64_s'][k]:.3e} / {e['k64_c'][k]:.3e}"
+                          for k in sorted(excused)))
+    return lim[0], lim[1], excused
 
 
 def check_kernel(model, lib, device):
@@ -390,32 +579,28 @@ def check_kernel(model, lib, device):
         got, got_c = sub.control_step_packed(model, params, terrain, state_p,
                                              const_p, tidx, sim_steps)
         torch.cuda.synchronize()
-        want, want_c = sub.control_step_packed_reference(
-            model, params, terrain, state_p, const_p, tidx, sim_steps)
-        want64, want64_c = sub.control_step_packed_reference(
-            model64, params, terrain64, state_p.double(), const_p.double(),
-            tidx, sim_steps)
         if not (torch.isfinite(got).all() and torch.isfinite(got_c).all()):
             raise AssertionError(f"kernel output not finite ({mode}, "
                                  f"hard={hard}, sim_steps={sim_steps})")
+        c, want, want_c = packed_check(
+            (model, params, terrain, state_p, const_p, tidx, sim_steps),
+            got, got_c, model64, terrain64)
         errs = {name: (sub.unpack(got, layout, name)
                        - sub.unpack(want, layout, name)).abs().max().item()
                 for name, _ in layout.fields}
-        state_err = max(errs.values())
-        contact_err = contact_excess(got_c, want_c)
-        plain64 = {"state": (want.double() - want64).abs().max().item(),
-                   "contact": contact_excess(want_c, want64_c)}
-        kernel64 = {"state": (got.double() - want64).abs().max().item(),
-                    "contact": contact_excess(got_c, want64_c)}
+        state_err, contact_err = c["state_err"], c["contact_err"]
+        plain64, kernel64 = c["plain64_err"], c["kernel64_err"]
         what = (f"{'b' if sim_steps > 1 else 'a'} {mode:11s} "
                 f"{'hard' if hard else 'soft'} {sim_steps}x{params.substeps}")
-        tol_s, tol_c = judge(state_err, contact_err, plain64, kernel64, what)
+        tol_s, tol_c, _ = judge(c, f"phase 3{what}")
         worst = max(worst, state_err)
         print(f"phase 3{what}: max|kernel-plain| state {state_err:.3e} "
               f"(tolerance {tol_s:.1e}), contact {contact_err:.3e} past rtol "
               f"(tolerance {tol_c:.1e}); vs float64: kernel {kernel64['state']:.2e} / "
               f"{kernel64['contact']:.2e}, plain {plain64['state']:.2e} / "
-              f"{plain64['contact']:.2e}; max|contact| "
+              f"{plain64['contact']:.2e} (card {plain64['card']['state']:.2e}"
+              f", CPU {plain64['cpu']['state']:.2e} on the state); "
+              f"max|contact| "
               f"{want_c.abs().max().item():.1f} N ("
               + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()) + ")")
 
@@ -533,10 +718,11 @@ def rollout(model, lib, device):
 
 @torch.no_grad()
 def step_vs_plain(model, env, lib, es, action):
-    """One control step of env from es: kernel, plain f32, and plain
-    float64 (the yardstick of what f32 can hold here); the errors, for
-    judge()."""
+    """One control step of env from es: kernel, plain f32 on the card and
+    on the CPU, and plain float64 (the yardstick of what f32 can hold
+    here); the errors, for judge()."""
     terrain = lib_terrain(lib)
+    model64, terrain64 = as_f64(model), terrain_f64(terrain)
     kw = dict(terrain_idx=es.motion_ids,
               sim_steps=env.cfg.sim_steps_per_control)
     got = engine.control_step(model, env.sim_params, terrain, es.sim,
@@ -545,33 +731,61 @@ def step_vs_plain(model, env, lib, es, action):
                                 action, step_fn=sub.control_step_packed_reference,
                                 **kw)
     sim64 = engine.SimState(**{k: v.double() for k, v in vars(es.sim).items()})
-    plain64 = engine.control_step(as_f64(model), env.sim_params,
-                                  terrain_f64(terrain), sim64,
+    plain64 = engine.control_step(model64, env.sim_params, terrain64, sim64,
                                   action.double(),
                                   step_fn=sub.control_step_packed_reference,
                                   **kw)
 
-    def err(a, b):
-        return {"state": max((getattr(a, f).double() - getattr(b, f).double())
-                             .abs().max().item() for f in STATE_CHECK),
-                "contact": contact_excess(a.contact_forces, b.contact_forces)}
+    def on_cpu(sim):
+        return engine.SimState(**{k: v.cpu() for k, v in vars(sim).items()})
+    plain_cpu = engine.control_step(
+        model.to("cpu"), env.sim_params, terrain_cpu(terrain), on_cpu(es.sim),
+        action.cpu(), step_fn=sub.control_step_packed_reference,
+        terrain_idx=es.motion_ids.cpu(), sim_steps=kw["sim_steps"])
+
+    def rows(a):  # (state, contact forces), a row an env
+        n = a.root_pos.shape[0]
+        return (torch.cat([getattr(a, f).reshape(n, -1)
+                           for f in STATE_CHECK], 1),
+                a.contact_forces.reshape(n, -1))
+    names = [f.name for f in dataclasses.fields(es.sim)]
+    sizes = [getattr(es.sim, k)[0].numel() for k in names]
+
+    def step64(inputs):  # the sim state's fields flattened into a row
+        sim = engine.SimState(**{
+            k: v.reshape((-1,) + getattr(es.sim, k).shape[1:])
+            for k, v in zip(names, inputs[0].split(sizes, 1))})
+        return rows(engine.control_step(
+            model64, env.sim_params, terrain64, sim, inputs[1],
+            step_fn=sub.control_step_packed_reference, terrain_idx=inputs[2],
+            sim_steps=kw["sim_steps"]))
+
+    def rerun(envs):
+        i = envs.to(action.device)
+        flat = torch.cat([getattr(es.sim, k)[i].reshape(len(i), -1)
+                          for k in names], 1).double()
+        return rerun_moves(step64, [flat, action[i].double(),
+                                    es.motion_ids[i]])
+    c = env_errors(rows(got), rows(plain), rows(plain_cpu), rows(plain64),
+                   rerun)
     step_err = {f: (getattr(got, f) - getattr(plain, f)).abs().max().item()
                 for f in STATE_CHECK}
-    step_err["contact_forces"] = contact_excess(got.contact_forces,
-                                                plain.contact_forces)
-    plain64_err, kernel64_err = err(plain, plain64), err(got, plain64)
-    step_err.update({f"plain_vs_f64_{k}": v for k, v in plain64_err.items()})
-    step_err.update({f"kernel_vs_f64_{k}": v for k, v in kernel64_err.items()})
-    return dict(step_err=step_err, plain64_err=plain64_err,
-                kernel64_err=kernel64_err,
+    step_err["contact_forces"] = c["contact_err"]
+    for k in ("state", "contact"):
+        step_err[f"plain_vs_f64_{k}"] = c["plain64_err"]["card"][k]
+        step_err[f"plain_cpu_vs_f64_{k}"] = c["plain64_err"]["cpu"][k]
+        step_err[f"kernel_vs_f64_{k}"] = c["kernel64_err"][k]
+    return dict(c, step_err=step_err,
                 max_contact=got.contact_forces.abs().max().item())
 
 
-def judge_step(r, what):
-    """judge() on step_vs_plain's errors."""
-    e = r["step_err"]
-    return judge(max(e[f] for f in STATE_CHECK), e["contact_forces"],
-                 r["plain64_err"], r["kernel64_err"], what)
+def f64_ratio(r):
+    """The kernel's state error against float64 over the plain f32
+    version's: in the worst env over judge's yardstick (the larger of the
+    card's and the CPU's), at the envs' 99.9th percentile over the
+    card's."""
+    return (r["kernel64_err"]["state"] / r["plain64_err"]["state"],
+            r["q999"]["kernel"] / r["q999"]["plain"])
 
 
 @torch.no_grad()
@@ -780,7 +994,7 @@ def record_and_eval(t, device):
     checks = [stage_state_check(t["dataset"], t["tracker"], device, n, rec)
               for n, rec in ((None, True), (EVAL_ENVS, False))]
     for c, what in zip(checks, ("record", "eval")):
-        c["tol"] = judge_step(c, f"phase 6 {what} control step")
+        c["tol"] = judge(c, f"phase 6 {what} control step")
     return dict(recorded=len(clips), motions=len(results), record_s=record_s,
                 record_launches=record_launches, per_round=per_round,
                 eval_s=eval_s, eval_launches=eval_launches,
@@ -1137,7 +1351,8 @@ def run_kin_gen(t, device, name, motions, terrains_per_batch, seconds):
     config.write_text(yaml.safe_dump(dict(
         max_contact_loss=float("inf"), max_pen_loss=float("inf"),
         max_total_loss=float("inf"), terrains_per_batch=terrains_per_batch,
-        path_cfg=dict(max_seconds=seconds))))
+        path_cfg=dict(max_seconds=seconds),
+        opt_cfg=dict(iters=KIN_OPT_ITERS))))
     sub.control_step_packed.launches = 0
     with kin_gen_probes(device) as rec:
         t0 = time.perf_counter()
@@ -1595,8 +1810,9 @@ def parkour_steps(p, device):
     """Phase 9a's step timings and 9b: from the trained agent's last env
     state, a control step with a replan and one without (wall, synchronized;
     the replan's device busy time from a profiler trace), then the kernel
-    against the plain version on the state after the replan, whose mgdm
-    rows stand on the platform slot of the grown terrain stack."""
+    against the plain version on PARKOUR_CHECKS successive control steps
+    from the state after the replan, whose mgdm rows stand on the platform
+    slot of the grown terrain stack."""
     agent, bundle, state = p["agent"], p["bundle"], p["state"]
     env = agent.env
     lib, mdm_state = env._unwrap(bundle)
@@ -1628,12 +1844,14 @@ def parkour_steps(p, device):
     slot = lib.num_motions - 1
     if not bool((after.motion_ids[env.n_dm:] == slot).all()):
         raise AssertionError("phase 9b: mgdm rows not on the terrain slot")
-    r = step_vs_plain(env.model, env, lib, after,
-                      agent.act(state, after.obs))
-    r["tol"] = judge_step(r, "phase 9b parkour control step")
+    checks = []
+    for _ in range(PARKOUR_CHECKS):
+        act = agent.act(state, after.obs)
+        checks.append(step_vs_plain(env.model, env, lib, after, act))
+        after = env.step(bundle, after, act, generator=g)
     return dict(step_replan_ms=with_replan, step_ms=without,
                 replan_wall_ms=replan_wall, replan_busy_ms=busy,
-                stack=tuple(lib.terrain_hf.shape), slot=slot, check=r)
+                stack=tuple(lib.terrain_hf.shape), slot=slot, checks=checks)
 
 
 def vision_policies(p, device):
@@ -1761,14 +1979,23 @@ def parkour_phase(t, device, smi):
           + ("not measured (no device time in the trace)" if busy is None
              else f"{busy:.1f} ms, idle share "
              f"{1.0 - busy / s['replan_wall_ms']:.3f}") + f" | {smi}")
-    c = s["check"]
-    print(f"phase 9b: parkour env after a replan ({NUM_ENVS} envs, terrain "
-          f"stack {s['stack']}, mgdm rows on slot {s['slot']}): kernel vs "
-          f"plain control step "
-          + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
-          + f" (tolerance state {c['tol'][0]:.1e}, contact "
-          f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N "
-          f"| {smi}")
+    for i, c in enumerate(s["checks"]):
+        ratio = f64_ratio(c)
+        print(f"phase 9b: parkour env {i} control steps after a replan "
+              f"({NUM_ENVS} envs, terrain stack "
+              f"{s['stack']}, mgdm rows on slot {s['slot']}): kernel vs "
+              f"plain control step "
+              + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
+              + f"; the kernel's float64 error on the state {ratio[0]:.2f}x "
+              f"the plain version's in the worst env, {ratio[1]:.2f}x the "
+              f"card's at the envs' 99.9th percentile; max|contact| "
+              f"{c['max_contact']:.1f} N | {smi}")
+    for i, c in enumerate(s["checks"]):
+        c["tol"] = judge(c, f"phase 9b parkour control step {i} "
+                                 f"steps after a replan")
+    print(f"phase 9b: all {PARKOUR_CHECKS} within phase 3's judge "
+          f"(tolerance state {max(c['tol'][0] for c in s['checks']):.1e} "
+          f"at most)")
     v = vision_policies(p, device)
     for name, r in v.items():
         print(f"phase 9c: {name} ({r['params']} parameters, bf16 trunk): "
@@ -1786,6 +2013,861 @@ def parkour_phase(t, device, smi):
           f"{d['eval_s']:.1f} s, test reward {d['test_reward']:.4f} "
           f"| {smi}")
     return p
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the second character
+# ---------------------------------------------------------------------------
+
+# contact parameters scaled to the ~11 kg quadruped (tests/test_physics.py:
+# 246-249)
+QUAD_ROBOT = dict(contact_stiffness=2500.0, contact_damping=100.0,
+                  max_contact_force=400.0)
+QUAD_STAND_STEPS, QUAD_COLLAPSE_STEPS = 30, 45
+# the input seeds of 3g's kernel-vs-plain check; the first is also timed
+QUAD_SEEDS = (3, 4, 5, 6, 7, 8)
+
+
+def bumpy_terrain(g, device):
+    """Two stacked 16 x 16 heightfields of 0.4 m cells with bumps of up to
+    8 cm (tests/test_torch_substep_host.py), drawn from the CPU generator
+    ``g``."""
+    return terrain_lib.stack_terrains([
+        Terrain(hf=0.08 * torch.rand((16, 16), generator=g).to(device),
+                hf_mask=None, hf_maxmin=None,
+                min_point=torch.tensor(mp, device=device),
+                dxdy=torch.tensor([0.4, 0.4], device=device))
+        for mp in ([-3.2, -3.2], [-3.0, -2.8])])
+
+
+def quadruped_inputs(model, n, seed, device):
+    """Packed state, PD targets and terrain index of n quadrupeds near the
+    standing pose (seeded noise on the joints, every second env's knees
+    past their upper limit), feet in a bumpy stacked terrain, noisy
+    velocities, PD targets near the stand; and the terrain. Drawn on the
+    CPU, so that a seed gives the same states on every machine (the host
+    build of the kernel's math can replay them)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def noise(scale, *shape):
+        return scale * torch.randn(shape, generator=g).to(device)
+
+    def unif(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g).to(device)
+    stand = torch.as_tensor(standing_pose_dof(), device=device)
+    nd = model.dof_size
+    knee = ((torch.arange(n, device=device)[:, None] % 2 == 1)
+            & (torch.arange(nd, device=device) % 3 == 2))
+    dof = torch.where(knee, model.dof_limits_upper + unif(0.05, 0.3, n, nd),
+                      stand + noise(0.15, n, nd))
+    root_rot = noise(0.05, n, 4)
+    root_rot[:, 3] = 1.0
+    root_rot = root_rot / root_rot.norm(dim=-1, keepdim=True)
+    root_pos = torch.cat([unif(-1.5, 1.5, n, 2), unif(0.26, 0.30, n, 1)],
+                         dim=-1)
+    st = engine.create_state(model, root_pos, root_rot,
+                             cm.dof_to_rot(model, dof), noise(0.3, n, 3),
+                             noise(0.3, n, 3), noise(1.0, n, nd),
+                             device=device)
+    act = stand + noise(0.1, n, nd)
+    tidx = torch.randint(0, 2, (n,), generator=g,
+                         dtype=torch.int32).to(device)
+    terrain = bumpy_terrain(g, device)
+    return (sub.pack(sub.state_layout(model), vars(st), n), act, tidx,
+            terrain)
+
+
+def check_quadruped(device):
+    """Phase 3g: the quadruped (13 bodies, 12 hinge dofs) at 4096 envs.
+    The kernel against the plain version in pd_implicit and pd_1d with the
+    robot's contact parameters, on the states of each of QUAD_SEEDS (judged
+    by quadruped_phase, as in phase 3); its time and bound; then the stand
+    (30 control steps through engine.control_step on the kernel, root
+    height within 0.2-0.45 m) and the passive collapse (45 steps without
+    stiffness, below 0.2 m), the launches of which are the path's count."""
+    model = quadruped_spec().build(device=device)
+    n = NUM_ENVS
+    model64, layout = as_f64(model), sub.state_layout(model)
+    cases = []
+    for seed, mode in itertools.product(QUAD_SEEDS, ("pd_implicit",
+                                                     "pd_1d")):
+        state_p, act, tidx, terrain = quadruped_inputs(model, n, seed,
+                                                       device)
+        terrain64 = terrain_f64(terrain)
+        params = engine.SimParams(control_mode=mode, **QUAD_ROBOT)
+        const_p = const_packed(model, mode, act)
+        args = (model, params, terrain, state_p, const_p, tidx, 2)
+        got, got_c = sub.control_step_packed(*args)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.isfinite(got_c).all()):
+            raise AssertionError(f"phase 3g: kernel output not finite "
+                                 f"({mode}, seed {seed})")
+        c, want, want_c = packed_check(args, got, got_c, model64, terrain64)
+        c.update(mode=mode, seed=seed, max_contact=want_c.abs().max().item(),
+                 errs={name: (sub.unpack(got, layout, name)
+                              - sub.unpack(want, layout, name)).abs().max()
+                       .item() for name, _ in layout.fields})
+        cases.append(c)
+    if max(c["max_contact"] for c in cases) < 20.0:
+        raise AssertionError("phase 3g: the quadrupeds' feet are not in "
+                             "contact")
+    # time and bound of the mode the hinge-only character runs in
+    state_p, act, tidx, terrain = quadruped_inputs(model, n, QUAD_SEEDS[0],
+                                                   device)
+    args = (model, engine.SimParams(control_mode="pd_1d", **QUAD_ROBOT),
+            terrain, state_p, const_packed(model, "pd_1d", act), tidx, 2)
+    call_ms = cuda_ms(lambda: sub.control_step_packed(*args), 200)
+    ms = device_busy_ms(lambda: sub.control_step_packed(*args), 200,
+                        "control_step_kernel")
+    timed_by = "profiler"
+    if ms is None:
+        ms, timed_by = call_ms, "CUDA events"
+    plain_ms = cuda_ms(lambda: sub.control_step_packed_reference(*args), 5)
+    first = sub.control_step_packed(*args)
+    hf, min_point, dxdy = sub.stacked_terrain(terrain)
+    nbytes = 4 * (state_p.numel() + args[4].numel() + first[0].numel()
+                  + first[1].numel() + tidx.numel() + hf.numel()
+                  + min_point.numel() + dxdy.numel())
+    nbytes += sum(t.numel() * 4 for t in sub.model_tables(model))
+    ops = substep_operations(model) * 2 * args[1].substeps * n
+
+    # the stand and the collapse: the path whose launches are counted
+    flat = terrain_lib.create_terrain(64, 64, dx=0.4, min_x=-12.8,
+                                      min_y=-12.8, device=device)
+    dof = torch.as_tensor(standing_pose_dof(), device=device)
+    st0 = engine.create_state(
+        model, torch.tensor([0.0, 0.0, 0.32], device=device).expand(n, 3),
+        torch.tensor([0.0, 0.0, 0.0, 1.0], device=device).expand(n, 4),
+        cm.dof_to_rot(model, dof).expand(n, -1, -1), device=device)
+    params = engine.SimParams(**QUAD_ROBOT)
+    passive = model.replace(
+        dof_stiffness=torch.zeros_like(model.dof_stiffness))
+    sub.control_step_packed.launches = 0
+    t0 = time.perf_counter()
+    st = st0
+    for _ in range(QUAD_STAND_STEPS):
+        st = engine.control_step(model, params, flat, st, dof)
+    stand_z = st.root_pos[:, 2]
+    st = st0
+    for _ in range(QUAD_COLLAPSE_STEPS):
+        st = engine.control_step(passive, params, flat, st, dof)
+    collapse_z = st.root_pos[:, 2]
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = sub.control_step_packed.launches
+    if launches != QUAD_STAND_STEPS + QUAD_COLLAPSE_STEPS:
+        raise AssertionError(f"phase 3g: {launches} launches over the stand "
+                             f"and the collapse")
+    if not (torch.isfinite(stand_z).all() and bool((stand_z > 0.2).all())
+            and bool((stand_z < 0.45).all())):
+        raise AssertionError(f"phase 3g: the quadruped did not stand: root "
+                             f"z {stand_z.min().item()}-"
+                             f"{stand_z.max().item()}")
+    if not bool((collapse_z < 0.2).all()):
+        raise AssertionError(f"phase 3g: the passive quadruped did not "
+                             f"collapse: root z up to "
+                             f"{collapse_z.max().item()}")
+    return dict(cases=cases, ms=ms, timed_by=timed_by, call_ms=call_ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops, launches=launches,
+                path_s=path_s, points=model.contact_point_body.shape[0],
+                stand_z=(stand_z.min().item(), stand_z.max().item()),
+                collapse_z=collapse_z.max().item(),
+                max_abs_err=max(c["state_err"] for c in cases))
+
+
+def quadruped_phase(device, smi):
+    q = check_quadruped(device)
+    for c in q["cases"]:
+        ratio = f64_ratio(c)
+        print(f"phase 3g: quadruped {c['mode']:11s} seed {c['seed']} 2x2 at "
+              f"{NUM_ENVS} envs: max|kernel-plain| state "
+              f"{c['state_err']:.3e}, contact {c['contact_err']:.3e} past "
+              f"rtol; vs float64: kernel {c['kernel64_err']['state']:.2e} / "
+              f"{c['kernel64_err']['contact']:.2e}, plain "
+              f"{c['plain64_err']['state']:.2e} / "
+              f"{c['plain64_err']['contact']:.2e} (card "
+              f"{c['plain64_err']['card']['state']:.2e}, CPU "
+              f"{c['plain64_err']['cpu']['state']:.2e} on the state): on the "
+              f"state {ratio[0]:.2f}x in the worst env, {ratio[1]:.2f}x the "
+              f"card's plain version at the envs' 99.9th percentile; "
+              f"max|contact| "
+              f"{c['max_contact']:.1f} N ("
+              + ", ".join(f"{k} {v:.1e}" for k, v in c["errs"].items()) + ")")
+    for c in q["cases"]:
+        # the quadruped's states are less well conditioned in f32 than the
+        # humanoid's (the plain version 8e-4-1.6e-3 off float64 in dof and
+        # body angular velocities), and which f32 order lands nearer float64
+        # in the single worst of 4096 envs swings with the mode and the
+        # seed, while the two per-env error distributions agree up to their
+        # 99.9th percentile; so the state gets the contact forces' 2x
+        c["tol"] = judge(c, f"phase 3g quadruped {c['mode']} seed "
+                            f"{c['seed']}", state_ratio=2.0)
+    print(f"phase 3g: all {len(q['cases'])} cases within phase 3's judge "
+          f"(tolerance state {max(c['tol'][0] for c in q['cases']):.1e} at "
+          f"most)")
+    bytes_s, ops_s = q["bytes"] / mem_rate(smi), q["ops"] / F32_RATE
+    q["bound_ms"] = 1e3 * max(bytes_s, ops_s)
+    q["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+    print(f"phase 3g: quadruped kernel {q['ms']:.4f} ms ({q['timed_by']}, "
+          f"pd_1d, mean of 200 launches; {q['call_ms']:.4f} ms per wrapper "
+          f"call), plain {q['plain_ms']:.3f} ms per control step at "
+          f"{NUM_ENVS} envs (13 bodies, 12 dofs, {q['points']} contact "
+          f"points); bound {q['bound_ms']:.4f} ms by {q['bound_by']} "
+          f"({q['bytes']} B: {1e3 * bytes_s:.4f} ms; {q['ops']} f32 ops: "
+          f"{1e3 * ops_s:.4f} ms); stand {QUAD_STAND_STEPS} steps: root z "
+          f"{q['stand_z'][0]:.3f}-{q['stand_z'][1]:.3f} m; passive "
+          f"{QUAD_COLLAPSE_STEPS} steps: root z at most "
+          f"{q['collapse_z']:.3f} m; {q['launches']} launches in "
+          f"{q['path_s']:.2f} s | {smi}")
+    return q
+
+
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_RANKS, DP_ITERS = 2, 2
+DP_DIR = WORK / "dp"
+DP_DEVICE = "cuda:0"  # 10(a)-(b): every rank on the one card, over gloo
+# 10(a): tests/test_torch_ppo.py's deterministic setup (its TRAIN_PPO) at
+# PPOConfig()'s network widths: no random reset, no action noise, one
+# minibatch an epoch, 4 steps an iteration (longer rollouts drift through
+# contact switches: with 32, the second iteration's tracking error leaves
+# the tolerance 10x over in a CPU rehearsal), in f32 (bf16 rounds each
+# rank's weight gradients apart from the whole batch's)
+DP_PPO = dict(steps_per_iter=4, reset_pool_k=1, update_epochs=2,
+              batch_size=8, exp_prob_beg=0.0, exp_prob_end=0.0,
+              bf16_compute=False)
+# tests/test_torch_ppo.py's tolerances
+DP_NORM_TOL, DP_FAIL_TOL, DP_TOL = 1e-5, 1e-6, 1e-4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(cmd, timeout):
+    """Run cmd in its own process group; on a timeout, kill the whole
+    group (torchrun and its ranks) and fail."""
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=Path(__file__).resolve().parent)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(map(str, cmd))} ran past {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(map(str, cmd))} failed "
+                             f"({proc.returncode}):\n{out[-6000:]}\n"
+                             f"{err[-6000:]}")
+    return out
+
+
+def torchrun(nproc, worker, timeout):
+    """``python -m torch.distributed.run`` of this script's worker mode,
+    ``nproc`` ranks on this host."""
+    return run_group([sys.executable, "-m", "torch.distributed.run",
+                      "--nproc_per_node", str(nproc), "--master_addr",
+                      "127.0.0.1", "--master_port", str(free_port()),
+                      str(Path(__file__).resolve()), "--dp-worker", *worker],
+                     timeout)
+
+
+def dp_env_agent(device):
+    """10(a)'s agent: the humanoid tracking one standing clip at NUM_ENVS
+    envs in all."""
+    model = humanoid_spec().build(device=device)
+    lib = ml.build_motion_lib(model, [standing_clip()], device=device)
+    env = DeepMimicEnv(model, engine.SimParams(),
+                       EnvConfig(num_envs=NUM_ENVS, rand_reset=False),
+                       device=device)
+    return PPOAgent(env, PPOConfig(**DP_PPO), device=device), lib
+
+
+def to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return {f.name: to_cpu(getattr(tree, f.name))
+                for f in dataclasses.fields(tree)}
+    return tree
+
+
+def dp_single(device):
+    """10(a)'s start (written for the ranks) and its one-process run:
+    DP_ITERS train_iters at NUM_ENVS envs. The start is tests/
+    test_torch_ppo.py's: the elbows' bias past the action bound (the bound
+    loss drives the actor without noise), a normalizer that has seen 256
+    spread samples."""
+    from parc_torch.learning import normalizer as norm_lib
+    from parc_torch.learning import ppo as ppo_lib
+    agent, lib = dp_env_agent(device)
+    g = torch.Generator(device=device).manual_seed(0)
+    state = agent.init(lib, g)
+    with torch.no_grad():
+        agent.net.actor_head.bias[[9, 13]] = torch.tensor([1.1, -1.1],
+                                                          device=device)
+    obs0 = state.env_state.obs[:1]
+    spread = (obs0 * (1.0 + 0.5 * torch.randn((256, obs0.shape[1]),
+                                              generator=g, device=device))
+              + torch.randn((256, obs0.shape[1]), generator=g,
+                            device=device))
+    state = state.replace(obs_norm=norm_lib.update(state.obs_norm, spread))
+    start = ppo_lib.persistent_state(agent, state)
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(start=to_cpu(start), env_state=state.env_state),
+               DP_DIR / "start.pt")
+    runs, state = dp_iterations(agent, lib, state, 1)
+    # what dp_replay needs to run the second iteration again
+    after1 = dict(env_state=state.env_state,
+                  generator=state.generator.get_state())
+    more, _ = dp_iterations(agent, lib, state, DP_ITERS - 1)
+    return dict(start=to_cpu(start), runs=runs + more, after1=after1)
+
+
+def dp_iterations(agent, lib, state, iters):
+    """``iters`` train_iters of one process: each one's time, metrics,
+    launches and persistent state after it; and the state after them."""
+    from parc_torch.learning import ppo as ppo_lib
+    runs = []
+    for _ in range(iters):
+        n0, t0 = sub.control_step_packed.launches, time.perf_counter()
+        state, m = agent.train_iter(lib, state)
+        profiling.sync(agent.device)
+        runs.append(dict(wall_s=time.perf_counter() - t0, metrics=to_cpu(m),
+                         launches=sub.control_step_packed.launches - n0,
+                         state=to_cpu(ppo_lib.persistent_state(agent,
+                                                               state))))
+    return runs, state
+
+
+def ranks_env(device, ranks):
+    """The ranks' env states after their first iteration put back together
+    (their fail rates are the same)."""
+    def cat(parts):
+        first = parts[0]
+        return dataclasses.replace(first, **{
+            f.name: (cat([getattr(p, f.name) for p in parts])
+                     if dataclasses.is_dataclass(getattr(first, f.name))
+                     else getattr(first, f.name).to(device)
+                     if f.name == "fail_rates"
+                     else torch.cat([getattr(p, f.name).to(device)
+                                     for p in parts]))
+            for f in dataclasses.fields(first)})
+    return cat([r["env_after1"] for r in ranks])
+
+
+def env_gap(a, b):
+    """Largest difference of two env states' simulator states."""
+    return max((getattr(a.sim, f.name).double()
+                - getattr(b.sim, f.name).double()).abs().max().item()
+               for f in dataclasses.fields(a.sim))
+
+
+def dp_replay(device, single, ranks, move=0.0, their_env=False,
+              their_norm=False):
+    """Witnesses of what parts the ranks' free second iteration from the
+    one process's (dp_compare): the one process's second iteration run
+    again from its own state after its first (its env state, normalizer
+    and generator), with each parameter and momentum entry moved by
+    ``move`` times the ranks' gap from it after the first iteration, in
+    random signs, and with the ranks' env state or normalizer in place of
+    its own where ``their_env`` or ``their_norm``. With none of these it
+    reruns the free iteration; ``move`` 1 moves the parameters by the
+    rounding gap between a 2048-row and a 4096-row first iteration,
+    pointed elsewhere. Its deviation from the free second iteration, as
+    dp_deviation's shares of the tolerances."""
+    from parc_torch.learning import ppo as ppo_lib
+    agent, lib = dp_env_agent(device)
+    state = agent.init(lib, torch.Generator(device=device).manual_seed(0))
+    own, theirs = single["runs"][0]["state"], ranks[0]["runs"][0]["state"]
+    g = torch.Generator().manual_seed(0)
+
+    def moved(a, b):
+        sign = 2.0 * torch.randint(0, 2, a.shape, generator=g) - 1.0
+        return a + move * sign * (b - a).abs()
+    start = dict(own, obs_norm=(theirs if their_norm else own)["obs_norm"],
+                 params={k: moved(v, theirs["params"][k])
+                         for k, v in own["params"].items()},
+                 opt_state={"momentum": {
+                     k: moved(v, theirs["opt_state"]["momentum"][k])
+                     for k, v in own["opt_state"]["momentum"].items()}})
+    state = state.replace(env_state=(ranks_env(device, ranks) if their_env
+                                     else single["after1"]["env_state"]))
+    state = ppo_lib.merge_persistent(agent, state, start)
+    state.generator.set_state(single["after1"]["generator"])
+    (run,), _ = dp_iterations(agent, lib, state, 1)
+    want = single["runs"][1]
+    return dp_deviation(run["state"], want["state"], run["metrics"],
+                        want["metrics"], single["start"]["params"])
+
+
+def dp_resume(device, ranks):
+    """One process's second iteration from the ranks' state after their
+    first: rank 0's persistent state (the ranks' are bit-identical) and
+    the ranks' env blocks put back together."""
+    from parc_torch.learning import ppo as ppo_lib
+    agent, lib = dp_env_agent(device)
+    state = agent.init(lib, torch.Generator(device=device).manual_seed(0))
+    state = ppo_lib.merge_persistent(agent, state,
+                                     ranks[0]["runs"][0]["state"])
+    state = state.replace(env_state=ranks_env(device, ranks))
+    return dp_iterations(agent, lib, state, 1)[0][0]
+
+
+def dp_worker_a(backend):
+    """One rank of 10(a) (or of 10(c) over NCCL, one rank a card): the
+    start's block of this rank through make_sharded_train_iter."""
+    from parc_torch.learning import ppo as ppo_lib
+    from parc_torch.parallel import mesh
+    info = mesh.init_distributed(
+        backend=backend, device=DP_DEVICE if backend == "gloo" else None)
+    group, rank, world, dev = (mesh.default_group(), info.rank,
+                               info.world_size, info.device)
+    if dev.type == "cuda":
+        mesh.primary_first(group, sub.library)  # one nvcc at most
+    inp = torch.load(DP_DIR / "start.pt", map_location=dev,
+                     weights_only=False)
+    agent, lib = dp_env_agent(dev)
+    local = mesh.local_agent(agent, world)
+    state = local.init(lib, mesh.rank_generator(0, rank, dev))
+    agent.net = local.net
+    state = ppo_lib.merge_persistent(local, state, inp["start"])
+    state = state.replace(env_state=mesh.local_block(
+        agent.env, inp["env_state"], rank, world))
+    sync0 = mesh.check_param_sync(agent.net.parameters(), group)
+    train_iter = mesh.make_sharded_train_iter(agent, group)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    sub.control_step_packed.launches = 0
+    for _ in range(DP_ITERS):
+        n0, t0 = sub.control_step_packed.launches, time.perf_counter()
+        state, m = train_iter(lib, state)
+        profiling.sync(dev)
+        runs.append(dict(wall_s=time.perf_counter() - t0, metrics=to_cpu(m),
+                         launches=sub.control_step_packed.launches - n0,
+                         state=to_cpu(ppo_lib.persistent_state(local,
+                                                               state))))
+        if len(runs) == 1:
+            env_after1 = state.env_state
+    sync = mesh.check_param_sync(agent.net.parameters(), group)
+    es = state.env_state  # the kernel against the plain version at its shape
+    check = rank_check(local.env, lib, state, local.act(state, es.obs),
+                       f"phase 10a: rank {rank}'s control step at "
+                       f"{es.done.shape[0]} envs")
+    torch.save(dict(
+        rank=rank, device=str(dev), backend=info.backend, runs=runs,
+        env_after1=env_after1, check=check,
+        envs=state.env_state.done.shape[0], sync0=sync0, sync=sync,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        allocated={i: torch.cuda.memory_allocated(i)
+                   for i in range(torch.cuda.device_count())}),
+        DP_DIR / f"a_{backend}_rank{rank}.pt")
+    mesh.shutdown()
+
+
+def rank_check(env, lib, state, action, what):
+    """A rank's kernel-vs-plain control step of its own envs, judged in the
+    rank (judge's float64 reruns need the rank's state): step_vs_plain's
+    figures and judge's tolerances, for the parent to print."""
+    es = state.env_state
+    c = step_vs_plain(env.model, env, lib, es, action)
+    c["tol"] = judge(c, what)
+    return {k: v for k, v in c.items() if k != "rerun"}
+
+
+def dp_deviation(got, want, metrics, ref_metrics, start):
+    """Each field of a ranks' persistent state and metrics against the one
+    process's, as a share of its tolerance (tests/test_torch_ppo.py's:
+    the normalizer 1e-5, the fail rates 1e-6, a parameter's change 1e-4 of
+    its largest plus 1e-6 of the parameter, a metric 1e-4 relative with a
+    floor of 1e-4 of its scale)."""
+    err = {}
+    for f in ("mean", "var", "count"):
+        g, w = got["obs_norm"][f].double(), want["obs_norm"][f].double()
+        err[f"obs_norm.{f}"] = ((g - w).abs()
+                                / (DP_NORM_TOL * (1 + w.abs()))).max().item()
+    err["fail_rates"] = (got["fail_rates"] - want["fail_rates"]).abs() \
+        .max().item() / DP_FAIL_TOL
+    for name, tree in (("params", "params"), ("momentum", "opt_state")):
+        pick = ((lambda s, k: s["params"][k]) if tree == "params"
+                else (lambda s, k: s["opt_state"]["momentum"][k]))
+        err[name] = max(
+            ((pick(got, k) - pick(want, k)).abs().max()
+             / (DP_TOL * (pick(want, k) - (p0 if tree == "params" else 0))
+                .abs().max() + 1e-6 * p0.abs().max() + 1e-12)).item()
+            for k, p0 in start.items())
+    for f, w in ref_metrics.items():
+        g, w = metrics[f].double(), w.double()
+        scale = max(w.abs().max().item(), 1.0)
+        err[f] = ((g - w).abs() / (DP_TOL * (w.abs() + scale))).max().item()
+    return err
+
+
+def dp_compare(single, resume, ranks, what):
+    """10(a)'s gates: every rank launched once per control step, the
+    kernel agreed with the plain version on its block (judged in the
+    rank, rank_check), its
+    parameters in sync and bit-identical to the other ranks' after every
+    iteration, the sample count summed over the ranks; and each of the
+    ranks' iterations against one process's iteration from the same state
+    at tests/test_torch_ppo.py's tolerances: the first from the start, the
+    second (``resume``) from the ranks' state after the first.
+
+    The one process's free run of both iterations from the start is
+    measured against the ranks', not gated: after the first iteration the
+    two runs differ by the rounding of 2048-row and 4096-row sums, and
+    with every env the same, that difference moves every sample of the
+    second rollout at once; dp_replay's witnesses show which part of the
+    state carries it (PERF.md)."""
+    steps = DP_PPO["steps_per_iter"]
+    for r in ranks:
+        if [x["launches"] for x in r["runs"]] != [steps] * DP_ITERS:
+            raise AssertionError(f"{what}: rank {r['rank']} launches "
+                                 f"{[x['launches'] for x in r['runs']]}")
+        if r["sync0"] != 0.0 or r["sync"] != 0.0:
+            raise AssertionError(f"{what}: check_param_sync {r['sync0']}, "
+                                 f"{r['sync']}")
+        if r["envs"] != NUM_ENVS // DP_RANKS:
+            raise AssertionError(f"{what}: rank {r['rank']} ran {r['envs']} "
+                                 f"envs")
+        own = torch.device(r["device"]).index
+        if any(v for i, v in r["allocated"].items() if i != own):
+            raise AssertionError(f"{what}: rank {r['rank']} allocated on "
+                                 f"another card: {r['allocated']}")
+    for i in range(DP_ITERS):
+        a, b = (r["runs"][i]["state"] for r in ranks)
+        for k in a["params"]:
+            if not (torch.equal(a["params"][k], b["params"][k])
+                    and torch.equal(a["opt_state"]["momentum"][k],
+                                    b["opt_state"]["momentum"][k])):
+                raise AssertionError(f"{what}: the ranks' {k} differ")
+        if not torch.equal(a["fail_rates"], b["fail_rates"]):
+            raise AssertionError(f"{what}: the ranks' fail rates differ")
+        samples = (i + 1) * steps * NUM_ENVS
+        want = single["runs"][i]["state"]
+        if not float(a["sample_count"]) == float(want["sample_count"]) \
+                == samples:
+            raise AssertionError(f"{what}: sample_count "
+                                 f"{float(a['sample_count'])}, one process "
+                                 f"{float(want['sample_count'])}")
+    r1, r2 = ranks[0]["runs"]
+    gated = [dp_deviation(r1["state"], single["runs"][0]["state"],
+                          r1["metrics"], single["runs"][0]["metrics"],
+                          single["start"]["params"]),
+             dp_deviation(r2["state"], resume["state"], r2["metrics"],
+                          resume["metrics"], r1["state"]["params"])]
+    for i, e in enumerate(gated):
+        worst = max(e, key=e.get)
+        if e[worst] > 1.0:
+            raise AssertionError(f"{what}: iteration {i + 1}, ranks vs one "
+                                 f"process from the same state: {worst} at "
+                                 f"{e[worst]:.3g} of its tolerance ({e})")
+    free = dp_deviation(r2["state"], single["runs"][1]["state"],
+                        r2["metrics"], single["runs"][1]["metrics"],
+                        single["start"]["params"])
+    return gated, free
+
+
+def dp_worker_b(argv):
+    """One rank of 10(b): the CLI's train_tracker (``argv``) under
+    torchrun, recording what the rank writes, the steps it replans on,
+    each train_iter's time and launches, its final persistent state and
+    its peak memory; then one control step of its final state through the
+    kernel, the plain version and float64."""
+    from parc_torch.envs.parkour import ParkourEnv
+    from parc_torch.learning import ppo as ppo_lib
+    rec = dict(saves=[], logs=[], replans=[], steps=0, iters=[])
+    save, logger = ckpt_lib.save, train_tracker.Logger
+    step, replan = ParkourEnv.step, ParkourEnv._replan
+    train_iter = ppo_lib.PPOAgent.train_iter
+
+    def spy_save(directory, s, state):
+        rec["saves"].append(s)
+        return save(directory, s, state)
+
+    class SpyLogger(logger):
+        def __init__(self, output_file=None, **kw):
+            rec["logs"].append(output_file)
+            super().__init__(output_file=output_file, **kw)
+
+    def spy_step(self, *a, **kw):
+        rec["steps"] += 1
+        return step(self, *a, **kw)
+
+    def spy_replan(self, *a, **kw):
+        rec["replans"].append(rec["steps"])
+        return replan(self, *a, **kw)
+
+    def spy_iter(self, lib, state, **kw):
+        rec["agent"], rec["lib"] = self, lib
+        n0, t0 = sub.control_step_packed.launches, time.perf_counter()
+        out = train_iter(self, lib, state, **kw)
+        profiling.sync(self.device)
+        rec["iters"].append(dict(
+            wall_s=time.perf_counter() - t0,
+            launches=sub.control_step_packed.launches - n0))
+        return out
+
+    ckpt_lib.save, train_tracker.Logger = spy_save, SpyLogger
+    ParkourEnv.step, ParkourEnv._replan = spy_step, spy_replan
+    ppo_lib.PPOAgent.train_iter = spy_iter
+    sub.control_step_packed.launches = 0
+    dev = torch.device(argv[argv.index("--device") + 1])
+    state = cli.main(argv)  # a fresh process: its peak memory is the run's
+    agent, bundle = rec.pop("agent"), rec.pop("lib")
+    rec.update(end=to_cpu(ppo_lib.persistent_state(agent, state)),
+               envs=agent.env.cfg.num_envs, mgdm=agent.env.pcfg.mgdm_num,
+               launches=sub.control_step_packed.launches,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    # the kernel against the plain version on the rank's own block: its
+    # terrain stack and its share of the mgdm rows
+    es = state.env_state
+    rec["check"] = rank_check(agent.env, agent.env._unwrap(bundle)[0], state,
+                              agent.act(state, es.obs),
+                              f"phase 10b: rank {os.environ['RANK']}'s "
+                              f"control step at {es.done.shape[0]} envs")
+    torch.save(rec, DP_DIR / f"b_rank{os.environ['RANK']}.pt")
+
+
+def dp_worker_nccl1():
+    """10(c) on one card: a world-size-1 NCCL group that inits, then an
+    all_reduce and a broadcast on the card."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    x = torch.arange(8.0, device=dev)
+    dist.all_reduce(x)
+    m = torch.arange(8.0, device=dev)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    y = torch.full((5,), 7.0, device=dev)
+    dist.broadcast(y, src=0)
+    torch.cuda.synchronize()
+    ok = (torch.equal(x, torch.arange(8.0, device=dev))
+          and torch.equal(m, torch.arange(8.0, device=dev))
+          and torch.equal(y, torch.full((5,), 7.0, device=dev)))
+    print(json.dumps({"nccl": dist.get_backend(),
+                      "world": dist.get_world_size(),
+                      "ok": bool(ok), "version": torch.cuda.nccl.version()}))
+    dist.destroy_process_group()
+    if not ok:
+        raise AssertionError("NCCL all_reduce / broadcast values wrong")
+
+
+def dp_parkour_config():
+    """10(b)'s config YAML: phase 9's parkour config, the params' sync
+    checked every iteration."""
+    path = WORK / "dp_parkour.yaml"
+    path.write_text(yaml.safe_dump(dict(
+        env_name="parkour", mgdm_num=PARKOUR_MGDM,
+        test_steps=PARKOUR_TEST_STEPS, iters_per_sync_check=1)))
+    return str(path)
+
+
+def dp_parkour(t, device):
+    """10(b): train_tracker --env_name parkour through the CLI under
+    torchrun, DP_RANKS ranks on the one card over gloo, from phase 7's
+    MDM; then the checkpoint restored into a one-process eval."""
+    out = WORK / "dp_parkour_tracker"
+    shutil.rmtree(out, ignore_errors=True)
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = dp_parkour_config()
+    t0 = time.perf_counter()
+    torchrun(DP_RANKS, ["b", "train_tracker", "--dataset", t["dataset"],
+                        "--out_dir", str(out), "--mdm_dir",
+                        str(WORK / "mdm"), "--num_envs", str(NUM_ENVS),
+                        "--max_iters", str(DP_ITERS), "--config", cfg,
+                        "--device", DP_DEVICE, "--dist_backend", "gloo"], 900)
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(DP_DIR / f"b_rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    steps = PPOConfig().steps_per_iter
+    for r, rec in enumerate(ranks):
+        if (rec["envs"], rec["mgdm"]) != (NUM_ENVS // DP_RANKS,
+                                          PARKOUR_MGDM // DP_RANKS):
+            raise AssertionError(f"phase 10b: rank {r} ran {rec['envs']} "
+                                 f"envs, {rec['mgdm']} mgdm rows")
+        if [x["launches"] for x in rec["iters"]] != [steps] * DP_ITERS:
+            raise AssertionError(f"phase 10b: rank {r} launches per "
+                                 f"train_iter {rec['iters']}")
+        if not rec["replans"]:
+            raise AssertionError(f"phase 10b: rank {r} did not replan")
+    r0, r1 = ranks
+    if r0["replans"] != r1["replans"]:
+        raise AssertionError(f"phase 10b: the ranks replanned on other "
+                             f"steps: {r0['replans']} / {r1['replans']}")
+    if r0["saves"] != [DP_ITERS] or r1["saves"] != []:
+        raise AssertionError(f"phase 10b: checkpoints written {r0['saves']}"
+                             f" / {r1['saves']}")
+    if r0["logs"] != [f"{out}/log.tsv"] or r1["logs"] != []:
+        raise AssertionError(f"phase 10b: logs {r0['logs']} / {r1['logs']}")
+    if not (out / "log.tsv").exists() or ckpt_lib.all_steps(
+            str(out / "checkpoints")) != [DP_ITERS]:
+        raise AssertionError("phase 10b: no log or checkpoint from rank 0")
+    a, b = r0["end"], r1["end"]
+    if not torch.equal(a["fail_rates"], b["fail_rates"]):
+        raise AssertionError("phase 10b: the ranks' fail rates differ")
+    for k in a["params"]:
+        if not torch.equal(a["params"][k], b["params"][k]):
+            raise AssertionError(f"phase 10b: the ranks' {k} differ")
+    if float(a["sample_count"]) != DP_ITERS * steps * NUM_ENVS:
+        raise AssertionError(f"phase 10b: sample_count "
+                             f"{float(a['sample_count'])}")
+    saved = ckpt_lib.restore(str(out / "checkpoints"))
+    if not all(torch.equal(saved["params"][k], a["params"][k])
+               for k in a["params"]):
+        raise AssertionError("phase 10b: the checkpoint is not rank 0's")
+    sub.control_step_packed.launches = 0
+    test, _ = cli.main(["eval", "--dataset", t["dataset"], "--tracker_dir",
+                        str(out), "--num_envs", str(EVAL_ENVS), "--config",
+                        cfg, "--device", device.type])
+    profiling.sync(device)
+    eval_launches = sub.control_step_packed.launches
+    if eval_launches != int(test["test_steps"]) or not all(
+            torch.isfinite(v).all() for v in test.values()):
+        raise AssertionError(f"phase 10b: eval from the checkpoint: "
+                             f"{eval_launches} launches, {test}")
+    return dict(ranks=ranks, wall_s=wall_s, eval_steps=eval_launches,
+                eval_reward=float(test["mean_reward"]),
+                launches=sum(r["launches"] for r in ranks))
+
+
+def dp_phase(t, p9, device, smi):
+    """Phase 10: data parallelism on the card: (a) DP_RANKS ranks on the
+    one card over gloo against one process; (b) the parkour env through
+    the CLI under torchrun; (c) NCCL."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    single = dp_single(device)
+    torch.cuda.empty_cache()  # the ranks share the card
+    t0 = time.perf_counter()
+    torchrun(DP_RANKS, ["a", "gloo"], 600)
+    a_s = time.perf_counter() - t0
+    ranks = [torch.load(DP_DIR / f"a_gloo_rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    resume = dp_resume(device, ranks)
+    gated, free = dp_compare(single, resume, ranks, "phase 10a")
+    replay = {"unmoved": dp_replay(device, single, ranks),
+              "moved": dp_replay(device, single, ranks, move=1.0),
+              "their env": dp_replay(device, single, ranks, their_env=True),
+              "their normalizer": dp_replay(device, single, ranks,
+                                            their_norm=True)}
+    gap = env_gap(ranks_env(device, ranks), single["after1"]["env_state"])
+
+    def shares(e):
+        return (f"worst {max(e, key=e.get)} {max(e.values()):.3g}, params "
+                f"{e['params']:.3g}, momentum {e['momentum']:.3g}, "
+                f"obs_norm.var {e['obs_norm.var']:.3g}, fail rates "
+                f"{e['fail_rates']:.3g}, tracking_error "
+                f"{e['tracking_error']:.3g}")
+    print(f"phase 10a: {DP_RANKS} ranks on one card over gloo "
+          f"(torch.distributed.run, {ranks[0]['backend']}), "
+          f"{NUM_ENVS // DP_RANKS} envs each, PPOConfig() widths in f32, "
+          f"{DP_ITERS} iterations of {DP_PPO['steps_per_iter']} steps "
+          f"against one process at {NUM_ENVS} envs from the same state, as "
+          f"shares of tests/test_torch_ppo.py's tolerances: iteration 1 "
+          f"{shares(gated[0])}; "
+          f"iteration 2 {shares(gated[1])}; the one process's free run of "
+          f"both iterations (not gated) {shares(free)}; ranks bit-identical, "
+          f"check_param_sync {ranks[0]['sync']}; launches per rank "
+          f"{[[x['launches'] for x in r['runs']] for r in ranks]}; "
+          f"s an iteration per rank "
+          f"{[[round(x['wall_s'], 3) for x in r['runs']] for r in ranks]}, "
+          f"one process {[round(x['wall_s'], 3) for x in single['runs']]}; "
+          f"peak memory per rank "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} GB; torchrun "
+          f"{a_s:.1f} s | {smi}")
+    print(f"phase 10a: the one process's second iteration again from its "
+          f"own state after the first, against its free run: unmoved "
+          f"{shares(replay['unmoved'])}; parameters and momentum moved by "
+          f"the ranks' first-iteration gap in random signs "
+          f"{shares(replay['moved'])}; from the ranks' env state (the two "
+          f"runs' simulator states {gap:.3e} apart after the first "
+          f"iteration) {shares(replay['their env'])}; with the ranks' "
+          f"normalizer {shares(replay['their normalizer'])} | {smi}")
+    for r in ranks:
+        c = r["check"]
+        print(f"phase 10a: rank {r['rank']}'s env ({r['envs']} envs, after "
+              f"{DP_ITERS} iterations): kernel vs plain control step "
+              + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
+              + f" (tolerance state {c['tol'][0]:.1e}, contact "
+              f"{c['tol'][1]:.1e}) | {smi}")
+
+    b = dp_parkour(t, device)
+    steps = PPOConfig().steps_per_iter
+    for r, rec in enumerate(b["ranks"]):
+        print(f"phase 10b: rank {r}: " + "; ".join(
+            f"iteration {i + 1} {x['wall_s']:.3f} s, "
+            f"{steps * NUM_ENVS // DP_RANKS / x['wall_s']:.1f} samples/s"
+            for i, x in enumerate(rec["iters"]))
+            + f"; {len(rec['replans'])} replans at steps {rec['replans']}; "
+            f"{rec['launches']} launches; peak memory {rec['peak_gb']:.2f} "
+            f"GB; kernel vs plain control step at {rec['envs']} envs "
+            + ", ".join(f"{f} {v:.1e}" for f, v
+                        in rec["check"]["step_err"].items())
+            + f" (tolerance state {rec['check']['tol'][0]:.1e}, contact "
+            f"{rec['check']['tol'][1]:.1e}) | {smi}")
+    walls = [max(r["iters"][i]["wall_s"] for r in b["ranks"])
+             for i in range(DP_ITERS)]
+    nine = [it["wall_s"] for it in p9["iters"]]
+    print(f"phase 10b: train_tracker --env_name parkour through the CLI "
+          f"under torchrun, {DP_RANKS} ranks on one card over gloo "
+          f"({NUM_ENVS} envs, {PARKOUR_MGDM} mgdm rows in all): "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s an iteration, "
+          f"{', '.join(f'{steps * NUM_ENVS / w:.1f}' for w in walls)} "
+          f"samples/s in all (phase 9a, one process: "
+          f"{', '.join(f'{w:.3f}' for w in nine)} s, "
+          f"{', '.join(f'{steps * NUM_ENVS / w:.1f}' for w in nine)}); "
+          f"torchrun {b['wall_s']:.1f} s; replans on the same steps, fail "
+          f"rates and params bit-identical, only rank 0 wrote; eval from "
+          f"its checkpoint at {EVAL_ENVS} envs: {b['eval_steps']} steps, "
+          f"test reward {b['eval_reward']:.4f} | {smi}")
+
+    if torch.cuda.device_count() >= 2:
+        torchrun(DP_RANKS, ["a", "nccl"], 600)
+        ranks = [torch.load(DP_DIR / f"a_nccl_rank{r}.pt", weights_only=False)
+                 for r in range(DP_RANKS)]
+        gated, _ = dp_compare(single, dp_resume(device, ranks), ranks,
+                              "phase 10c")
+        print(f"phase 10c: 10a over NCCL, one rank a card "
+              f"({[r['device'] for r in ranks]}): iterations 1 and 2 at "
+              f"{max(gated[0].values()):.3g} and {max(gated[1].values()):.3g}"
+              f" of their tolerances | {smi}")
+    else:
+        out = run_group([sys.executable, str(Path(__file__).resolve()),
+                         "--dp-worker", "nccl1"], 300)
+        probe = json.loads(out.strip().splitlines()[-1])
+        if not probe["ok"]:
+            raise AssertionError(f"phase 10c: {probe}")
+        print(f"phase 10c: a world-size-1 NCCL group (NCCL "
+              f"{probe['version']}) inits, all_reduce (sum, max) and "
+              f"broadcast on the card give the expected values | {smi}")
+        print("phase 10c: the two-rank NCCL run waits for a machine with "
+              "two cards (NCCL refuses two ranks on one GPU)")
+    return b
+
+
+def dp_worker(argv):
+    """The ranks of phase 10, started by torchrun (``--dp-worker``)."""
+    if argv[0] == "a":
+        dp_worker_a(argv[1])
+    elif argv[0] == "b":
+        dp_worker_b(argv[1:])
+    elif argv[0] == "nccl1":
+        dp_worker_nccl1()
+    else:
+        raise SystemExit(f"unknown worker {argv[0]!r}")
 
 
 def main():
@@ -1842,6 +2924,7 @@ def main():
           f"blocks): {total:.0f} cycles = "
           + ", ".join(f"{name} {c:.0f} ({c / total:.3f})"
                       for name, c in k["cycles"].items()))
+    q = quadruped_phase(device, smi)
 
     r = rollout(model, lib, device)
     busy = ("not measured (no device time in the trace)"
@@ -1860,7 +2943,7 @@ def main():
           f"vs plain control step "
           + ", ".join(f"{f} {v:.1e}" for f, v in r["step_err"].items())
           + f" | {smi}")
-    judge_step(r, "phase 4 control step")
+    judge(r, "phase 4 control step")
 
     t = train(device)
     for i, it in enumerate(t["iters"]):
@@ -1901,6 +2984,7 @@ def main():
     mdm_phase(t, device, smi)
     k8 = kin_gen_phase(t, device, smi)
     p9 = parkour_phase(t, device, smi)
+    p10 = dp_phase(t, p9, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -1916,11 +3000,19 @@ def main():
                              "record": r6["record_launches"],
                              "eval": r6["eval_launches"],
                              "kin_gen": k8["launches"],
-                             "parkour": p9["launches"]}}]}))
+                             "parkour": p9["launches"],
+                             "ddp": p10["launches"],
+                             "quadruped": q["launches"]},
+        "quadruped": {"ms": q["ms"], "plain_ms": q["plain_ms"],
+                      "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+                      "max_abs_err": q["max_abs_err"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
+    else:
+        main()

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+import os
+import struct as _struct
+import xml.etree.ElementTree as ET
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -353,6 +356,285 @@ def build_char_model(spec: CharModelSpec, device="cpu") -> CharModel:
 
 
 # ---------------------------------------------------------------------------
+# MJCF parsing (generic; merges triples of hinges into spherical joints)
+# ---------------------------------------------------------------------------
+
+
+def load_mesh_vertices(path: str) -> np.ndarray:
+    """Mesh vertices from an .obj (ascii) or .stl (binary or ascii) file.
+
+    Only the vertices are read: the mass properties and contact points are
+    derived from them (GeomSpec), so no mesh library is needed.
+    """
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".obj":
+        verts = []
+        with open(path) as f:
+            for line in f:
+                if line.startswith("v "):
+                    parts = line.split()
+                    verts.append([float(parts[1]), float(parts[2]),
+                                  float(parts[3])])
+        if not verts:
+            raise ValueError("no vertices in OBJ")
+        return np.asarray(verts, np.float64)
+    if ext == ".stl":
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:5] == b"solid" and b"facet" in data[:500]:
+            verts = []
+            for line in data.decode(errors="ignore").splitlines():
+                line = line.strip()
+                if line.startswith("vertex"):
+                    parts = line.split()
+                    verts.append([float(parts[1]), float(parts[2]),
+                                  float(parts[3])])
+            if not verts:
+                raise ValueError("no vertices in ascii STL")
+            return np.unique(np.asarray(verts, np.float64), axis=0)
+        n_tri = _struct.unpack("<I", data[80:84])[0]
+        verts = np.frombuffer(
+            data, np.uint8, count=n_tri * 50, offset=84
+        ).reshape(n_tri, 50)[:, 12:48].copy().view("<f4").reshape(-1, 3)
+        return np.unique(verts.astype(np.float64), axis=0)
+    raise ValueError(f"unsupported mesh format {ext!r}")
+
+
+def _parse_vec(s, default):
+    if s is None:
+        return tuple(default)
+    return tuple(float(x) for x in s.split())
+
+
+def _parse_quat_wxyz(s):
+    """An MJCF quat (w x y z) as the port's (x, y, z, w)."""
+    if s is None:
+        return (0.0, 0.0, 0.0, 1.0)
+    w, x, y, z = (float(v) for v in s.split())
+    return (x, y, z, w)
+
+
+def parse_mjcf(path: str) -> CharModelSpec:
+    """Parse an MJCF file into a CharModelSpec.
+
+    Supports the subset used by PARC-style characters: nested bodies with
+    0/1/3 hinge joints (three become one spherical joint), sphere / box /
+    capsule / mesh geoms with densities, mesh assets (.obj, .stl) with a
+    scale, joint defaults, and a root-level <actuator> block of motors
+    keyed by joint name.
+    """
+    tree = ET.parse(path)
+    root_el = tree.getroot()
+
+    # mesh assets (<asset><mesh name file [scale]>)
+    meshes: Dict[str, np.ndarray] = {}
+    asset_el = root_el.find("asset")
+    if asset_el is not None:
+        base = os.path.dirname(os.path.abspath(path))
+        for mel in asset_el.findall("mesh"):
+            fname = mel.attrib.get("file")
+            if not fname:
+                continue
+            scale = _parse_vec(mel.attrib.get("scale"), (1.0, 1.0, 1.0))
+            try:
+                v = load_mesh_vertices(os.path.join(base, fname))
+                meshes[mel.attrib.get("name",
+                                      os.path.splitext(fname)[0])] = (
+                    v * np.asarray(scale, np.float64))
+            except (OSError, ValueError) as e:
+                print(f"warning: mesh asset {fname!r} skipped: {e}")
+
+    # actuator gears by joint name
+    gears = {}
+    act = root_el.find("actuator")
+    if act is not None:
+        for motor in act.findall("motor"):
+            gears[motor.attrib["joint"]] = float(motor.attrib.get("gear", 1.0))
+
+    # defaults (class="body")
+    default_joint = {}
+    default_geom_type = "sphere"
+    default_el = root_el.find("default")
+    if default_el is not None:
+        for sub in default_el.iter("default"):
+            j = sub.find("joint")
+            if j is not None:
+                default_joint = dict(j.attrib)
+            g = sub.find("geom")
+            if g is not None and "type" in g.attrib:
+                default_geom_type = g.attrib["type"]
+
+    bodies: List[BodySpec] = []
+
+    def parse_joints(body_name, joint_els) -> JointSpec:
+        if len(joint_els) == 0:
+            return JointSpec(name=body_name, joint_type=FIXED)
+        if len(joint_els) == 1:
+            el = joint_els[0]
+            attrib = {**default_joint, **el.attrib}
+            lo, hi = _parse_vec(attrib.get("range"), (-180.0, 180.0))
+            return JointSpec(
+                name=el.attrib.get("name", body_name),
+                joint_type=HINGE,
+                axis=_parse_vec(attrib.get("axis"), (0, 0, 1)),
+                limits=[(math.radians(lo), math.radians(hi))],
+                stiffness=float(attrib.get("stiffness", 0.0)),
+                damping=float(attrib.get("damping", 0.0)),
+                armature=float(attrib.get("armature", 0.0)),
+                gears=[gears.get(el.attrib.get("name", ""), 0.0)],
+            )
+        if len(joint_els) == 3:
+            limits, g = [], []
+            attrib = {**default_joint, **joint_els[0].attrib}
+            for el in joint_els:
+                a = {**default_joint, **el.attrib}
+                lo, hi = _parse_vec(a.get("range"), (-180.0, 180.0))
+                limits.append((math.radians(lo), math.radians(hi)))
+                g.append(gears.get(el.attrib.get("name", ""), 0.0))
+            name = joint_els[0].attrib.get("name", body_name)
+            for suffix in ("_x", "_y", "_z"):
+                if name.endswith(suffix):
+                    name = name[: -len(suffix)]
+            return JointSpec(
+                name=name, joint_type=SPHERICAL, limits=limits,
+                stiffness=float(attrib.get("stiffness", 0.0)),
+                damping=float(attrib.get("damping", 0.0)),
+                armature=float(attrib.get("armature", 0.0)),
+                gears=g,
+            )
+        raise ValueError("series joints are not supported")
+
+    def parse_geom(el) -> GeomSpec:
+        kind = el.attrib.get("type", default_geom_type)
+        density = float(el.attrib.get("density", 1000.0))
+        quat = _parse_quat_wxyz(el.attrib.get("quat"))
+        if kind == "capsule":
+            fromto = _parse_vec(el.attrib.get("fromto"), (0,) * 6)
+            return GeomSpec("capsule", fromto=fromto,
+                            size=(float(el.attrib.get("size", 0.1)),),
+                            density=density, quat=quat)
+        pos = _parse_vec(el.attrib.get("pos"), (0, 0, 0))
+        if kind == "mesh":
+            name = el.attrib.get("mesh", "")
+            if name not in meshes:
+                raise ValueError(f"geom references unknown mesh {name!r}")
+            v = meshes[name].copy()
+            q = np.asarray(quat, np.float64)
+            if abs(q[3] - 1.0) > 1e-9:
+                qv, qw = q[:3], q[3]
+                t = 2.0 * np.cross(qv, v)
+                v = v + qw * t + np.cross(qv, t)
+            v = v + np.asarray(pos, np.float64)
+            return GeomSpec("mesh", pos=pos, density=density, quat=quat,
+                            verts=v)
+        size = _parse_vec(el.attrib.get("size"), (0.1,))
+        return GeomSpec(kind, pos=pos, size=size, density=density, quat=quat)
+
+    def walk(el, parent_idx):
+        idx = len(bodies)
+        joint_els = el.findall("joint")
+        if parent_idx == -1 and (el.find("freejoint") is not None
+                                 or not joint_els):
+            joint = JointSpec(name="root", joint_type=ROOT)
+        else:
+            joint = parse_joints(el.attrib.get("name", f"body{idx}"),
+                                 joint_els)
+        bodies.append(
+            BodySpec(
+                name=el.attrib.get("name", f"body{idx}"),
+                parent=parent_idx,
+                pos=_parse_vec(el.attrib.get("pos"), (0, 0, 0)),
+                quat=_parse_quat_wxyz(el.attrib.get("quat")),
+                joint=joint,
+                geoms=[parse_geom(g) for g in el.findall("geom")],
+            )
+        )
+        for child in el.findall("body"):
+            walk(child, idx)
+
+    world = root_el.find("worldbody")
+    walk(world.find("body"), -1)
+    return CharModelSpec(name=root_el.attrib.get("model", "char"),
+                         bodies=bodies)
+
+
+def load_char_file(path: str, device="cpu") -> CharModel:
+    """The CharModel of an MJCF file, on ``device``."""
+    return parse_mjcf(path).build(device=device)
+
+
+def export_mjcf(spec: CharModelSpec) -> str:
+    """Re-export a CharModelSpec as an MJCF document (reference:
+    anim/kin_char_model.py:756-931) that :func:`parse_mjcf` reads back:
+    spherical joints as three hinges, mesh geoms as their bounding box."""
+    root = ET.Element("mujoco", model=spec.name)
+    world = ET.SubElement(root, "worldbody")
+
+    def fmt(vals):
+        return " ".join(f"{float(v):.6g}" for v in vals)
+
+    elems = {}
+    for i, b in enumerate(spec.bodies):
+        parent_el = world if b.parent < 0 else elems[b.parent]
+        el = ET.SubElement(parent_el, "body", name=b.name, pos=fmt(b.pos))
+        q = b.quat
+        if abs(q[3] - 1.0) > 1e-9 or any(abs(x) > 1e-9 for x in q[:3]):
+            # MJCF quats are wxyz
+            el.set("quat", fmt([q[3], q[0], q[1], q[2]]))
+        elems[i] = el
+        j = b.joint
+        common = {}
+        if j.stiffness:
+            common["stiffness"] = f"{j.stiffness:.6g}"
+        if j.damping:
+            common["damping"] = f"{j.damping:.6g}"
+        if j.armature:
+            common["armature"] = f"{j.armature:.6g}"
+        if j.joint_type == ROOT:
+            ET.SubElement(el, "freejoint", name=j.name)
+        elif j.joint_type == SPHERICAL:
+            # three hinges, the source MJCF convention the parser merges
+            # back into one spherical joint
+            axes = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
+            for k, suffix in enumerate(("_x", "_y", "_z")):
+                jel = ET.SubElement(el, "joint", name=j.name + suffix,
+                                    type="hinge", axis=fmt(axes[k]),
+                                    **common)
+                if k < len(j.limits):
+                    jel.set("range", fmt([math.degrees(v)
+                                          for v in j.limits[k]]))
+        elif j.joint_type == HINGE:
+            jel = ET.SubElement(el, "joint", name=j.name, type="hinge",
+                                axis=fmt(j.axis), **common)
+            if j.limits:
+                jel.set("range", fmt([math.degrees(v)
+                                      for v in j.limits[0]]))
+        for g in b.geoms:
+            if g.kind == "mesh":
+                # a mesh re-exports as its bounding box (the asset file is
+                # not written), so the document stands alone
+                lo, hi = g.verts.min(axis=0), g.verts.max(axis=0)
+                gel = ET.SubElement(el, "geom", type="box",
+                                    pos=fmt((lo + hi) / 2.0),
+                                    size=fmt((hi - lo) / 2.0))
+                if g.density != 1000.0:
+                    gel.set("density", f"{g.density:.6g}")
+                continue
+            gel = ET.SubElement(el, "geom", type=g.kind)
+            if g.kind == "capsule":
+                gel.set("fromto", fmt(g.fromto))
+                gel.set("size", fmt(g.size[:1]))
+            else:
+                gel.set("pos", fmt(g.pos))
+                gel.set("size", fmt(g.size[:3] if g.kind == "box"
+                                    else g.size[:1]))
+            if g.density != 1000.0:
+                gel.set("density", f"{g.density:.6g}")
+    ET.indent(root)
+    return ET.tostring(root, encoding="unicode")
+
+
+# ---------------------------------------------------------------------------
 # Pure kinematic functions
 # ---------------------------------------------------------------------------
 
@@ -421,6 +703,13 @@ def compute_frame_dof_vel(model: CharModel, joint_rot: torch.Tensor,
     dof_vel = compute_dof_vel(model, joint_rot[..., :-1, :, :],
                               joint_rot[..., 1:, :, :], dt)
     return torch.cat([dof_vel, dof_vel[..., -1:, :]], dim=-2)
+
+
+def clamp_dof(model: CharModel, dof: torch.Tensor,
+              margin: float = 0.0) -> torch.Tensor:
+    """``dof`` clamped to the joint limits pulled in by ``margin``."""
+    return torch.clamp(dof, model.dof_limits_lower + margin,
+                       model.dof_limits_upper - margin)
 
 
 def body_vel_from_dof_vel(model: CharModel, body_rot: torch.Tensor,

@@ -341,3 +341,15 @@ def parkour_reset_pool_from_numpy(pool, device="cpu",
     return ParkourResetPool(
         **vars(base),
         **{f: _tensor(f, _get(pool, f), device) for f in _BUFFER_FIELDS})
+
+
+def local_env_state_from_numpy(env, state, rank: int, n_shards: int,
+                               device="cpu"):
+    """Rank ``rank``'s local env state of a global env state with numpy
+    leaves, laid out shard-major as the JAX package's
+    ``shard_major_env_state`` lays it out; ``env`` is the port's global env
+    (``parallel.mesh.local_block``)."""
+    from parc_torch.parallel import mesh
+    conv = (parkour_state_from_numpy if hasattr(env, "shard_row_permutation")
+            else env_state_from_numpy)
+    return mesh.local_block(env, conv(state, device), rank, n_shards)

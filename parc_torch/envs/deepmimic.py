@@ -146,6 +146,19 @@ class DeepMimicEnv:
                 lo[o], hi[o] = mid - scale, mid + scale
         return lo, hi
 
+    def local_shard(self, n_shards: int) -> "DeepMimicEnv":
+        """Per-rank env for data parallelism: the same env with
+        ``cfg.num_envs / n_shards`` envs. Rows are independent here, so the
+        clone behaves on its block of the batch as the whole env does on
+        all of it (parallel/mesh.py)."""
+        if self.cfg.num_envs % n_shards:
+            raise ValueError(f"num_envs {self.cfg.num_envs} not divisible "
+                             f"by {n_shards}")
+        cfg = dataclasses.replace(self.cfg,
+                                  num_envs=self.cfg.num_envs // n_shards)
+        return DeepMimicEnv(self.model, self.sim_params, cfg,
+                            device=self.device)
+
     # ------------------------------------------------------------------
     # Reset
     # ------------------------------------------------------------------

@@ -33,6 +33,7 @@ import dataclasses
 import math
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from parc_torch.anim import char_model as cm
@@ -189,6 +190,42 @@ class ParkourEnv(DeepMimicEnv):
         self.mgdm_mask[self.n_dm:] = True
         names = list(model.body_names)
         self.foot_ids = [i for i, nm in enumerate(names) if "foot" in nm]
+
+    # -- data parallelism ------------------------------------------------
+    def local_shard(self, n_shards: int) -> "ParkourEnv":
+        """Per-rank env for data parallelism: both the env batch and the
+        mgdm fraction split over the ranks, so each rank runs its own
+        replans on its own mgdm rows (the reference trains the parkour
+        composition data-parallel the same way: every process owns a
+        dm + mgdm slice, ig_parkour_env.py:53 + mp_optimizer.py:83-90).
+        The replan timer is the same Python int on every rank, so every
+        rank replans on the same step. The global state must be laid out
+        shard-major first (:meth:`shard_row_permutation`), so that rank r's
+        contiguous block is ``[n_dm/D dm rows | mgdm_num/D mgdm rows]``."""
+        for what, v in (("num_envs", self.cfg.num_envs),
+                        ("mgdm_num", self.pcfg.mgdm_num)):
+            if v % n_shards:
+                raise ValueError(f"{what} {v} not divisible by {n_shards}")
+        cfg = dataclasses.replace(self.cfg,
+                                  num_envs=self.cfg.num_envs // n_shards)
+        pcfg = dataclasses.replace(self.pcfg,
+                                   mgdm_num=self.pcfg.mgdm_num // n_shards)
+        return ParkourEnv(self.model, self.sim_params, cfg, pcfg, self.mdm,
+                          self.mgdm_terrain, device=self.device)
+
+    def shard_row_permutation(self, n_shards: int) -> np.ndarray:
+        """Env-row permutation from the global ``[dm... | mgdm...]`` layout
+        to shard-major blocks ``[dm_0|mg_0, dm_1|mg_1, ...]``: after it,
+        rank r's contiguous block of the env batch is the local layout that
+        :meth:`local_shard` expects. The per-mgdm-row buffers (leading dim
+        mgdm_num) already split into contiguous blocks and need none."""
+        nd, nm = self.n_dm, self.pcfg.mgdm_num
+        if nd % n_shards or nm % n_shards:
+            raise ValueError(f"dm rows {nd} and mgdm rows {nm} must both "
+                             f"divide by {n_shards}")
+        dm = np.arange(nd).reshape(n_shards, -1)
+        mg = nd + np.arange(nm).reshape(n_shards, -1)
+        return np.concatenate([dm, mg], axis=1).reshape(-1)
 
     # -- lib plumbing ----------------------------------------------------
     def make_lib(self, lib: ml.MotionLib, mdm_state: MDMState) -> ParkourLib:

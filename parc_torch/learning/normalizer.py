@@ -1,7 +1,9 @@
 """Running observation normalizer (a dataclass of tensors).
 
 Accumulates mean/second-moment statistics; segments flagged
-non-normalized (heightfield, contacts) pass through untouched.
+non-normalized (heightfield, contacts) pass through untouched. Under data
+parallelism the batch's count and sums are all-reduced over the ranks
+before they are folded in (reference: learning/normalizer.py:29-58).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional
 import torch
 
 from parc_torch import resolve_device
+from parc_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -41,12 +44,15 @@ def create(dim: int, norm_mask=None, clip: float = 10.0,
         clip=clip, sample_limit=sample_limit)
 
 
-def update(state: NormalizerState, batch: torch.Tensor) -> NormalizerState:
-    """Fold a batch of observations (any leading dims) into the stats."""
+def update(state: NormalizerState, batch: torch.Tensor,
+           group=None) -> NormalizerState:
+    """Fold a batch of observations (any leading dims) into the stats; with
+    a process ``group``, the batches of all its ranks."""
     x = batch.reshape(-1, batch.shape[-1])
-    n = float(x.shape[0])
     s1 = torch.sum(x, dim=0)
     s2 = torch.sum(x * x, dim=0)
+    s1, s2, n = mesh.psum_flat([s1, s2, s1.new_tensor(float(x.shape[0]))],
+                               group)
     new_count = state.count + n
     # merge via moment accumulation
     old_s1 = state.mean * state.count

@@ -28,6 +28,7 @@ from parc_torch.learning import distributions as dist
 from parc_torch.learning import normalizer as norm_lib
 from parc_torch.learning import rl_util
 from parc_torch.learning.networks import ActorCritic
+from parc_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,12 +339,18 @@ class PPOAgent:
             g.mul_(scale)
 
     # ------------------------------------------------------------------
-    def train_iter(self, lib, agent: AgentState, timer=None
+    def train_iter(self, lib, agent: AgentState, timer=None, group=None
                    ) -> Tuple[AgentState, TrainMetrics]:
         """One full PPO iteration. Updates ``net`` and ``agent.optimizer``
         in place and returns the new state and the iteration's metrics.
         ``timer`` (a profiling.PhaseTimer) times its "rollout" and
-        "update" halves, synchronizing the device at the end of each."""
+        "update" halves, synchronizing the device at the end of each.
+
+        With a process ``group`` (data parallelism, parallel/mesh.py) this
+        rank's env batch is its share, and the quantities the JAX package
+        reduces over its 'data' axis are all-reduced over the ranks: the
+        normalizer's sums, the advantage moments, every minibatch's
+        gradients (averaged before the clip) and the sample count."""
         cfg, dev = self.cfg, self.device
 
         def phase(name):
@@ -362,10 +369,11 @@ class PPOAgent:
             env_state, batch = self.rollout(lib, agent, exp_prob)
 
         with phase("update"):
-            obs_norm = norm_lib.update(agent.obs_norm, batch["obs"])
+            obs_norm = norm_lib.update(agent.obs_norm, batch["obs"],
+                                       group=group)
             with torch.no_grad():
                 tar_val, norm_adv, adv_mean, adv_std, norm_obs = (
-                    self._targets(batch, obs_norm))
+                    self._targets(batch, obs_norm, group))
             t, b = batch["reward"].shape
             flat = {
                 "norm_obs": norm_obs.reshape(t * b, -1),
@@ -376,7 +384,8 @@ class PPOAgent:
                 "rand_mask": batch["rand_mask"].reshape(t * b),
             }
             auxes = self._update(flat, agent.optimizer, agent.generator,
-                                 mb_size=min(cfg.batch_size * b, t * b))
+                                 mb_size=min(cfg.batch_size * b, t * b),
+                                 group=group)
 
         dones = batch["done"] != DoneFlags.NULL
         metrics = TrainMetrics(
@@ -392,13 +401,17 @@ class PPOAgent:
             mean_ep_time=torch.mean(batch["ep_time"]),
             tracking_error=torch.mean(batch["tracking_error"], dim=(0, 1)),
         )
+        samples = mesh.psum(agent.sample_count.new_tensor(float(t * b)),
+                            group)
         new_agent = agent.replace(obs_norm=obs_norm, env_state=env_state,
-                                  sample_count=agent.sample_count
-                                  + float(t * b))
+                                  sample_count=agent.sample_count + samples)
         return new_agent, metrics
 
-    def _targets(self, batch, obs_norm):
-        """TD(lambda) value targets and the normalized advantages."""
+    def _targets(self, batch, obs_norm, group=None):
+        """TD(lambda) value targets and the normalized advantages; with a
+        ``group``, the local advantage mean and the local variance (about
+        the local mean) are averaged over the ranks, as the JAX package
+        does (not the variance of the union)."""
         cfg = self.cfg
         norm_next = norm_lib.normalize(obs_norm, batch["next_obs"])
         next_vals = self.net.critic(norm_next)
@@ -423,16 +436,28 @@ class PPOAgent:
         mask_sum = torch.clamp(torch.sum(mask), min=1.0)
         adv_mean = torch.sum(adv * mask) / mask_sum
         adv_var = torch.sum(((adv - adv_mean) ** 2) * mask) / mask_sum
+        adv_mean, adv_var = mesh.pmean(torch.stack([adv_mean, adv_var]),
+                                       group)
         adv_std = torch.sqrt(torch.clamp(adv_var, min=1e-10))
         norm_adv = torch.clamp((adv - adv_mean) / torch.clamp(adv_std,
                                                               min=1e-5),
                                -cfg.norm_adv_clip, cfg.norm_adv_clip)
         return tar_val, norm_adv, adv_mean, adv_std, norm_obs
 
-    def _update(self, flat, optimizer, generator, mb_size: int
+    def _allreduce_grads(self, group) -> None:
+        """Average the gradients over the ranks: one all-reduce over one
+        flat buffer."""
+        grads = [p.grad for p in self.net.parameters() if p.grad is not None]
+        w = mesh.world_size(group)
+        for g, v in zip(grads, mesh.psum_flat(grads, group)):
+            g.copy_(v / w)
+
+    def _update(self, flat, optimizer, generator, mb_size: int, group=None
                 ) -> Dict[str, torch.Tensor]:
         """update_epochs epochs of minibatch SGD over the flat batch, each
-        epoch in a fresh random order; returns the stacked loss terms."""
+        epoch in a fresh random order; returns the stacked loss terms. With
+        a ``group``, each minibatch's gradients are averaged over the ranks
+        before the clip."""
         n = flat["rand_mask"].shape[0]
         num_mb = max(n // mb_size, 1)
         auxes = []
@@ -443,6 +468,8 @@ class PPOAgent:
                 loss, aux = self._loss(*(flat[k][idx] for k in _FLAT_KEYS))
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if group is not None:
+                    self._allreduce_grads(group)
                 if self.cfg.clip_grad_norm:
                     self._clip_grads()
                 optimizer.step()

@@ -19,6 +19,16 @@ Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the plain PyTorch versions on the CPU). Any flag can also come from a YAML
 file via --config (flags win). Reference parity: run.py:95-164,
 parc_0_setup_iter.py, parc_1..5 scripts.
+
+``train_tracker`` trains data-parallel on N GPUs under torchrun, one rank a
+GPU, each on ``cuda:{LOCAL_RANK}`` over NCCL:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m parc_torch.pipeline.cli train_tracker --dataset m.yaml --out_dir T
+
+``--device`` names one device for every rank instead, and
+``--dist_backend gloo`` swaps NCCL for gloo (two ranks may share one card
+over gloo; NCCL refuses that). The other stages stay single-process.
 """
 
 from __future__ import annotations
@@ -78,16 +88,41 @@ def stage_create_dataset(cfg: dict):
     print(f"wrote {out}")
 
 
+def _train_device(cfg: dict) -> torch.device:
+    """train_tracker's device: in a torchrun launch of more than one rank,
+    this rank's (``cuda:{LOCAL_RANK}`` unless ``device`` names one) after
+    joining the process group (NCCL on CUDA unless ``dist_backend`` names
+    another); else ``device``."""
+    from parc_torch.parallel import mesh
+    if mesh.launch_world_size() <= 1:
+        return _device(cfg)
+    info = mesh.init_distributed(backend=cfg.get("dist_backend"),
+                                 device=cfg.get("device"))
+    print(f"rank {info.rank} of {info.world_size} on {info.device} "
+          f"({info.backend})")
+    return info.device
+
+
 def stage_train_tracker(cfg: dict):
     """Tracker training (parc_3). ``env_name: deepmimic`` (default) trains
     on the dataset clips; ``parkour`` trains the composition env (a dm
     fraction on the dataset clips, an mgdm fraction of ``mgdm_num`` envs
     tracking references that the MDM of ``mdm_dir`` generates online);
-    ``mgdm`` trains on generated references only."""
+    ``mgdm`` trains on generated references only. Under torchrun every
+    rank runs this, data-parallel (pipeline/train_tracker.py)."""
+    from parc_torch.parallel import mesh
+    joins = mesh.launch_world_size() > 1 and not mesh.initialized()
+    try:
+        return _train_tracker(cfg, _train_device(cfg))
+    finally:
+        if joins:  # leave the group this stage joined
+            mesh.shutdown()
+
+
+def _train_tracker(cfg: dict, dev: torch.device):
     from parc_torch.envs import builder
     from parc_torch.learning.ppo import PPOAgent, PPOConfig
     from parc_torch.pipeline import dataset, train_tracker
-    dev = _device(cfg)
     model = _build_model(dev)
     lib = dataset.load_dataset(model, cfg["dataset"], device=dev)
     mdm = mdm_state = None
@@ -413,6 +448,9 @@ def main(argv=None):
     p.add_argument("--diagnostics", action="store_true", default=None)
     p.add_argument("--env_name", default=None,
                    choices=["deepmimic", "parkour", "mgdm"])
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="train_tracker under torchrun: the process group's "
+                        "backend (default nccl on CUDA, gloo on the CPU)")
     args = p.parse_args(argv)
     return STAGES[args.stage](_load_config(args))
 

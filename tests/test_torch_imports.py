@@ -1,9 +1,10 @@
 """The port stands alone: no module of parc_torch, and not chip_smoke.py,
 imports JAX, flax, optax, orbax or anything of parc_tpu (found by an AST
 scan of every import statement, including ones inside functions), and a
-fresh interpreter that imports every MDM and kin-gen module, trains an MDM
-a step, samples from it and runs a tiny kin-gen with it has none of them
-loaded."""
+fresh interpreter that imports every MDM and kin-gen module and the
+data-parallel module, trains an MDM a step, samples from it, runs a tiny
+kin-gen with it and loads the quadruped from its MJCF export has none of
+them loaded."""
 
 import ast
 import pathlib
@@ -48,7 +49,9 @@ def test_files_found():
                    "utils/terrain.py", "procgen/astar.py",
                    "procgen/mdm_path.py", "opt/motion_opt.py",
                    "anim/motion_edit.py", "anim/motion_data.py",
-                   "pipeline/kin_gen.py", "pipeline/augment.py"):
+                   "pipeline/kin_gen.py", "pipeline/augment.py",
+                   "parallel/__init__.py", "parallel/mesh.py",
+                   "data/quadruped.py", "anim/char_model.py"):
         assert (ROOT / "parc_torch" / module) in FILES, module
 
 
@@ -92,6 +95,15 @@ def test_no_forbidden_module_after_an_mdm_runs():
             opt_cfg=motion_opt.MotionOptConfig(iters=2),
             path_cfg=mdm_path.PathGenSettings(max_seconds=0.5))
         assert kin_gen.run_kin_gen(mdm, state, 1, tempfile.mkdtemp(), cfg)
+        import os
+        from parc_torch.anim import char_model
+        from parc_torch.data.quadruped import quadruped_spec
+        from parc_torch.parallel import mesh
+        assert mesh.check_param_sync(state.net.parameters(), None) == 0.0
+        path = os.path.join(tempfile.mkdtemp(), "quadruped.xml")
+        with open(path, "w") as f:
+            f.write(char_model.export_mjcf(quadruped_spec()))
+        assert char_model.load_char_file(path).dof_size == 12
         print(sorted({m.split(".")[0] for m in sys.modules}))
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

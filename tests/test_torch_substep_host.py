@@ -9,7 +9,9 @@ kernel's arithmetic here, on the CPU. It is held against
 ``control_step_packed_reference`` for every control mode and both
 joint-limit forms, on motion-lib states lowered into a bumpy stacked
 terrain (contact active), with noisy velocities and some envs past their
-joint limits. Tolerances: the state at 2e-4 (the control-step tolerance of
+joint limits; and on the quadruped (13 bodies, 12 hinge dofs: another
+level schedule and set of contact points) in the control modes it runs in,
+pd_implicit and pd_1d. Tolerances: the state at 2e-4 (the control-step tolerance of
 tests/test_pallas.py:190-193); the contact forces at 2e-3 N + rtol 1e-5
 (tests/test_torch_engine.py: the 8000 N/m contact stiffness times one f32
 ulp of a contact point's height). The __global__ kernel in
@@ -30,6 +32,7 @@ from parc_torch import cuda_build
 from parc_torch.anim import char_model as cm
 from parc_torch.anim import motion_lib as ml
 from parc_torch.data.humanoid import humanoid_spec
+from parc_torch.data.quadruped import quadruped_spec, standing_pose_dof
 from parc_torch.data.synthetic import standing_clip, walking_clip
 from parc_torch.physics import engine
 from parc_torch.physics import substep as sub
@@ -235,6 +238,73 @@ def test_model_tables_layout(inputs):
                        model.contact_point_offset.reshape(-1))
     assert torch.equal(floats[3 * npt:], model.contact_point_radius.reshape(-1))
     assert sub.model_tables(model)[1] is ftab  # packed once per model
+
+
+# contact parameters scaled to the ~11 kg quadruped (tests/test_physics.py:
+# 246-249)
+ROBOT = dict(contact_stiffness=2500.0, contact_damping=100.0,
+             max_contact_force=400.0)
+
+
+@pytest.fixture(scope="module")
+def quad_inputs():
+    """N quadrupeds near the standing pose (seeded noise on the joints,
+    every second env's knees past their upper limit), their feet in the
+    bumpy stacked terrain, noisy velocities, PD targets near the stand."""
+    model = quadruped_spec().build()
+    rng = np.random.default_rng(1)
+    stand = torch.as_tensor(standing_pose_dof())
+
+    def noise(scale, *shape):
+        return torch.as_tensor(rng.normal(0, scale, shape),
+                               dtype=torch.float32)
+    dof = stand + noise(0.15, N, 12)
+    push = torch.as_tensor(rng.uniform(0.05, 0.3, (N, 12)),
+                           dtype=torch.float32)
+    knee = (torch.arange(N)[:, None] % 2 == 1) & (torch.arange(12) % 3 == 2)
+    dof = torch.where(knee, model.dof_limits_upper + push, dof)
+    root_rot = noise(0.05, N, 4)
+    root_rot[:, 3] = 1.0
+    root_rot = root_rot / root_rot.norm(dim=-1, keepdim=True)
+    root_pos = torch.zeros(N, 3)
+    root_pos[:, :2] = torch.as_tensor(rng.uniform(-1.5, 1.5, (N, 2)))
+    root_pos[:, 2] = torch.as_tensor(rng.uniform(0.26, 0.3, N))
+    st = engine.create_state(model, root_pos, root_rot,
+                             cm.dof_to_rot(model, dof), noise(0.3, N, 3),
+                             noise(0.3, N, 3), noise(1.0, N, 12),
+                             device="cpu")
+    act = stand + noise(0.1, N, 12)
+    terrain = bumpy_terrains(rng)
+    tidx = torch.as_tensor(rng.integers(0, 2, N), dtype=torch.int32)
+    state_p = sub.pack(sub.state_layout(model), vars(st), N)
+    return model, terrain, state_p, act, tidx
+
+
+def test_quadruped_tables(quad_inputs):
+    """The quadruped's level schedule (a trunk with four 3-deep legs) and
+    its packed table's sizes."""
+    model = quad_inputs[0]
+    level, levels, children = sub.level_schedule(model.parent_indices)
+    assert levels == [[0], [1, 4, 7, 10], [2, 5, 8, 11], [3, 6, 9, 12]]
+    assert children[0] == [10, 7, 4, 1] and children[3] == []
+    itab, ftab = sub.model_tables(model)
+    nb, nd = model.num_bodies, model.dof_size
+    npt = model.contact_point_body.shape[0]
+    assert (nb, nd, npt) == (13, 12, 36)
+    assert itab.tolist()[:4] == [nb, nd, npt, 4]
+    assert itab.numel() == 4 + 7 * nb + 1 + 2 * npt
+    assert ftab.numel() == 26 * nb + 6 * nd + 4 * npt
+
+
+@pytest.mark.parametrize("mode", ["pd_implicit", "pd_1d"])
+def test_kernel_math_quadruped(host_lib, quad_inputs, mode):
+    """A whole control step (2 sim steps x 2 substeps) of the quadruped,
+    with the ~11 kg robot's contact parameters."""
+    model, terrain, state_p, act, tidx = quad_inputs
+    args = (model, engine.SimParams(control_mode=mode, **ROBOT), terrain,
+            state_p, _const(model, mode, act), tidx, 2)
+    _assert_step_close(model, host_control_step(host_lib, *args),
+                       sub.control_step_packed_reference(*args))
 
 
 @pytest.fixture
