@@ -142,6 +142,32 @@ Phases, each printing one line of facts:
    per rank; (c) with two cards or more, (a) over NCCL, one rank a card;
    with one, a world-size-1 NCCL group's all_reduce and broadcast on the
    card.
+11. the tools on the card, from phases 5, 7 and 8's outputs: (a) the
+   CLI's ``metrics`` stage on phase 8a's kin-gen clips (per-clip metrics,
+   the CSV, ``dataset_statistics``), every value finite and each within
+   1e-4 relative of the same call on the CPU; (b) ``tools/fidelity.py``:
+   ``run_sweeps`` (9 sweeps x the 4 synthetic clips, open-loop PD replay
+   through the control-step kernel) with its table and seconds a sweep,
+   gated at one launch a control step and on tests/test_fidelity.py's
+   thresholds for the default sweep (stand reward > 1.2, survival > 0.30;
+   walk > 0.74, > 0.24; tracking errors finite, the root's < 0.5); then
+   ``pd_replay`` at 4096 envs (each clip 1,024 times), every copy of a
+   clip giving the same result bits, and its 30th control step through
+   the kernel against the plain version (as in phase 3); (c)
+   ``run_validation`` from phase 7's checkpoint on two kin-gen boxes
+   fixtures with their A* paths (paths cut to 3 s of 10), top 4: rows =
+   fixtures x 4, metrics finite; (d) ``retarget_keypoints`` at
+   RetargetConfig() (1,500 Adam iterations) on the walking clip's own
+   keypoints, the round trip's mean keypoint error under 0.06 m and the
+   frames inside the dof limits, and ``retarget_keypoints_to_robot`` on a
+   small URDF the script carries, its losses falling and finite; (e) the
+   editing and geometry helpers on the card against the CPU on a kin-gen
+   clip: resample_fps, blend_motions and correct_foot_ground_pen within
+   1e-4; compute_contacts equal but where a contact point's nearest cell
+   differs (a cell edge) or its height sits on the eps band's edge (counted
+   apart); the match search's frames equal; flat_maxpool_3x3,
+   downsample_terrain, merge_hfs and hf_from_motion equal; the native
+   mesher's mesh valid (indices in range, no degenerate triangle).
 Phase 3g, after phase 3: the quadruped (13 bodies, 12 hinge dofs, 36
 contact points) at 4096 envs near its standing pose in a bumpy stacked
 terrain, drawn on the CPU from 6 seeds: the kernel against the plain
@@ -967,7 +993,7 @@ def record_and_eval(t, device):
                                  f"(T, 34)")
         if not (np.isfinite(c.frames).all() and np.isfinite(c.contacts).all()):
             raise AssertionError("recorded clip not finite")
-    lib = ml.load_motion_lib(humanoid_spec().build(),
+    lib = ml.load_motion_lib(humanoid_spec().build(device="cpu"),
                              dataset_files(t["dataset"]), device="cpu")
     per_round = record.round_steps(lib, record.RecordConfig().max_steps)
     if record_launches % per_round != 0 or record_launches == 0:
@@ -1934,7 +1960,7 @@ def parkour_record_eval(p, t, device):
                                  f"{env.sim_params}")
     if len(built) != 2 or built[0].cfg.num_envs != len(results):
         raise AssertionError("phase 9d: record and eval envs not as asked")
-    lib = ml.load_motion_lib(humanoid_spec().build(),
+    lib = ml.load_motion_lib(humanoid_spec().build(device="cpu"),
                              dataset_files(t["dataset"]), device="cpu")
     per_round = record.round_steps(lib, record.RecordConfig().max_steps)
     if record_launches != per_round:
@@ -2858,6 +2884,485 @@ def dp_phase(t, p9, device, smi):
     return b
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the tools (metrics, fidelity, validation, retargeting) and the
+# editing and geometry helpers
+# ---------------------------------------------------------------------------
+
+TOOLS_REL = 1e-4      # 11a: card vs CPU metrics, 11e: card vs CPU edits
+FIDELITY_COPIES = 1024  # 11b: the 4 clips x 1024 = 4096 envs
+FIDELITY_CHECK_STEP = 30  # 11b: the control step held against the plain one
+# 11b: tests/test_fidelity.py:27-43's thresholds for the default sweep
+FIDELITY_MIN = {"stand": (1.2, 0.30), "walk": (0.74, 0.24)}
+VALIDATION_TOP_K = 4
+VALIDATION_SECONDS = 3.0  # 11c: path length cut from 10 s
+RETARGET_ERR = 0.06  # 11d: tests/test_retarget.py:27
+# 11d: the URDF the script carries (tests/test_retarget.py's arm: two
+# revolute joints, a fixed wrist and a prismatic tool)
+ARM_URDF = """<robot name="arm">
+  <link name="base"/><link name="upper"/><link name="fore"/>
+  <link name="hand"/><link name="tool"/>
+  <joint name="shoulder" type="revolute">
+    <parent link="base"/><child link="upper"/>
+    <origin xyz="0 0 1" rpy="0 0 0"/><axis xyz="0 0 1"/>
+    <limit lower="-1.5" upper="1.5"/></joint>
+  <joint name="elbow" type="revolute">
+    <parent link="upper"/><child link="fore"/>
+    <origin xyz="1 0 0" rpy="0 0 0"/><axis xyz="0 0 1"/>
+    <limit lower="-2.0" upper="2.0"/></joint>
+  <joint name="wrist" type="fixed">
+    <parent link="fore"/><child link="hand"/>
+    <origin xyz="0.5 0 0" rpy="0 0 0"/></joint>
+  <joint name="slider" type="prismatic">
+    <parent link="hand"/><child link="tool"/>
+    <origin xyz="0 0 0" rpy="0 0 0"/><axis xyz="0 0 1"/>
+    <limit lower="0" upper="0.3"/></joint>
+</robot>"""
+ARM_MAP = {"pelvis": "base", "left_hip": "upper", "left_knee": "fore",
+           "left_ankle": "hand", "left_foot": "tool"}
+
+
+def rel_same(got, want, rel, what):
+    """Every value of ``got`` within ``rel`` relative of ``want``'s (inf,
+    None and counts equal)."""
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, str) or w is None or not np.isfinite(w):
+            if g != w:
+                raise AssertionError(f"{what}: {k} {g} against {w}")
+        elif abs(g - w) > rel * max(abs(w), 1e-6):
+            raise AssertionError(f"{what}: {k} {g} against {w} (relative "
+                                 f"{rel})")
+
+
+def metrics_stage(clip_dir, device):
+    """11a: the CLI's metrics stage on phase 8's kin-gen clips, and the
+    same call on the CPU."""
+    from parc_torch.tools import metrics
+    out = WORK / "metrics.csv"
+    t0 = time.perf_counter()
+    rows, stats = cli.main(["metrics", "--motions_dir", str(clip_dir),
+                            "--out", str(out)])
+    profiling.sync(device)
+    s = time.perf_counter() - t0
+    if not rows or not out.exists():
+        raise AssertionError(f"phase 11a: metrics wrote {len(rows)} rows")
+    for r in rows:
+        for k, v in r.items():
+            if k != "file" and v is not None and not np.isfinite(v):
+                raise AssertionError(f"phase 11a: {r['file']} {k} = {v}")
+    if not all(np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"phase 11a: statistics {stats}")
+    cpu_rows = metrics.evaluate_motion_dir(
+        humanoid_spec().build(device="cpu"), str(clip_dir))
+    worst = 0.0
+    for g, w in zip(rows, cpu_rows):
+        rel_same(g, w, TOOLS_REL, f"phase 11a: {w['file']} card vs CPU")
+        worst = max([worst] + [abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+                               for k in w if k != "file" and w[k]
+                               is not None])
+    return dict(rows=rows, stats=stats, s=s, worst=worst)
+
+
+def fidelity_phase(device):
+    """11b: run_sweeps on the card, one launch a control step; then the
+    harness at 4096 envs and one of its control steps against the plain
+    version."""
+    from parc_torch.tools import fidelity
+    clips = fidelity.fidelity_clips(include_reference=False)
+    cfg = EnvConfig()
+    steps = int(max(np.floor(np.float32((c.frames.shape[0] - 1) / c.fps)
+                             / cfg.control_dt) - 1 for c in clips.values()))
+    per_sweep = []
+    replay = fidelity.pd_replay
+
+    def timed(*a, **kw):
+        before = sub.control_step_packed.launches
+        profiling.sync(device)
+        t0 = time.perf_counter()
+        out = replay(*a, **kw)
+        profiling.sync(device)
+        per_sweep.append((time.perf_counter() - t0,
+                          sub.control_step_packed.launches - before))
+        return out
+    fidelity.pd_replay = timed
+    sub.control_step_packed.launches = 0
+    try:
+        results = fidelity.run_sweeps(device=device, include_reference=False)
+    finally:
+        fidelity.pd_replay = replay
+    launches = sub.control_step_packed.launches
+    for name, (s, n) in zip(results, per_sweep):
+        if n != steps:
+            raise AssertionError(f"phase 11b: sweep {name}: {n} launches "
+                                 f"for {steps} control steps")
+    for name, rs in results.items():
+        for r in rs:
+            if not (np.isfinite(r.mean_reward)
+                    and np.all(np.isfinite(r.tracking_error))):
+                raise AssertionError(f"phase 11b: {name} {r}")
+    for r in results["default"]:
+        lo = FIDELITY_MIN.get(r.clip)
+        if lo and not (r.mean_reward > lo[0] and r.survival > lo[1]):
+            raise AssertionError(f"phase 11b: default {r.clip}: reward "
+                                 f"{r.mean_reward}, survival {r.survival} "
+                                 f"(need > {lo})")
+        if not r.tracking_error[0] < 0.5:
+            raise AssertionError(f"phase 11b: default {r.clip}: root "
+                                 f"tracking error {r.tracking_error[0]}")
+
+    # the harness at full width: 4 clips x 1024 copies, and one control
+    # step of its state (the first of the envs alive at the check step)
+    model = humanoid_spec().build(device=device)
+    seen = {}
+    env_step = DeepMimicEnv.step
+
+    def spy(self, lib, state, actions, **kw):
+        seen["n"] = seen.get("n", 0) + 1
+        if seen["n"] == FIDELITY_CHECK_STEP:
+            seen.update(env=self, lib=lib, state=state, action=actions)
+        return env_step(self, lib, state, actions, **kw)
+    DeepMimicEnv.step = spy
+    sub.control_step_packed.launches = 0
+    try:
+        profiling.sync(device)
+        t0 = time.perf_counter()
+        wide = fidelity.pd_replay(model, engine.SimParams(), clips,
+                                  device=device, copies=FIDELITY_COPIES)
+        profiling.sync(device)
+        wide_s = time.perf_counter() - t0
+    finally:
+        DeepMimicEnv.step = env_step
+    wide_launches = sub.control_step_packed.launches
+    if wide_launches != steps:
+        raise AssertionError(f"phase 11b: {wide_launches} launches at "
+                             f"{len(wide)} envs for {steps} control steps")
+    first = {}
+    for e, r in enumerate(wide):
+        ref = first.setdefault(r.clip, r)
+        if not ((r.mean_reward, r.survival, r.failed)
+                == (ref.mean_reward, ref.survival, ref.failed)
+                and np.array_equal(r.tracking_error, ref.tracking_error)):
+            raise AssertionError(f"phase 11b: env {e} ({r.clip}) {r} "
+                                 f"against its first copy {ref}")
+    check = step_vs_plain(model, seen["env"], seen["lib"], seen["state"],
+                          seen["action"])
+    check["tol"] = judge(check, f"phase 11b fidelity control step "
+                         f"{FIDELITY_CHECK_STEP}")
+    return dict(results=results, per_sweep=per_sweep, steps=steps,
+                launches=launches, wide=wide, wide_s=wide_s,
+                wide_launches=wide_launches, check=check,
+                default_1024=[first[c] for c in clips])
+
+
+def validation_phase(t, device):
+    """11c: run_validation from phase 7's checkpoint on two fixtures, each
+    a kin-gen boxes terrain with its A* path."""
+    from parc_torch.pipeline import kin_gen
+    from parc_torch.procgen import mdm_path
+    from parc_torch.tools import validation
+    model = humanoid_spec().build(device=device)
+    mdm = MDM(model, MDMConfig(), device=device)
+    lib = dataset_lib.load_dataset(model, t["dataset"], device=device)
+    state = mdm.merge_persistent(
+        mdm.init(lib, torch.Generator(device=device).manual_seed(1),
+                 stats_samples=64),
+        ckpt_lib.restore(str(WORK / "mdm" / "checkpoints"),
+                         map_location=device))
+    fixtures, seed = [], KIN_CHECK_SEED
+    while len(fixtures) < 2:
+        drawn = kin_gen._draw_terrain_and_path(
+            KinGenConfig(), np.random.default_rng(seed), device)
+        seed += 1
+        if drawn is not None:
+            fixtures.append(validation.ValidationFixture(
+                f"boxes{seed - 1}", drawn[0], drawn[2]))
+    cfg = mdm_path.PathGenSettings(max_seconds=VALIDATION_SECONDS)
+    mdm.denoise_calls = 0
+    t0 = time.perf_counter()
+    rows = validation.run_validation(mdm, state, fixtures,
+                                     output_dir=str(WORK / "validation"),
+                                     seed=0, path_cfg=cfg,
+                                     top_k=VALIDATION_TOP_K)
+    profiling.sync(device)
+    s = time.perf_counter() - t0
+    if len(rows) != len(fixtures) * VALIDATION_TOP_K:
+        raise AssertionError(f"phase 11c: {len(rows)} rows for "
+                             f"{len(fixtures)} fixtures x top "
+                             f"{VALIDATION_TOP_K}")
+    for r in rows:
+        for k, v in r.items():
+            if isinstance(v, float) and not np.isfinite(v):
+                raise AssertionError(f"phase 11c: {r['fixture']} {k} = {v}")
+    return dict(rows=rows, s=s, summary=validation.summarize(rows),
+                denoise=mdm.denoise_calls, batch=cfg.batch_size,
+                gen_s=sorted({r["gen_time_s"] for r in rows}))
+
+
+def retarget_phase(device):
+    """11d: the humanoid round trip through retarget_keypoints at
+    RetargetConfig(), and retarget_keypoints_to_robot on the arm URDF."""
+    from parc_torch.retarget import keypoint_ik, urdf
+    model = humanoid_spec().build(device=device)
+    frames = walking_clip(seed=0, n=30).frames
+    kps = keypoint_ik.keypoints_from_motion(model, frames)
+    cfg = keypoint_ik.RetargetConfig()
+    mapping = {n: n for n in model.body_names}
+    profiling.sync(device)
+    t0 = time.perf_counter()
+    got, losses = keypoint_ik.retarget_keypoints(
+        model, kps, keypoint_names=model.body_names, mapping=mapping,
+        cfg=cfg, device=device)
+    profiling.sync(device)
+    s = time.perf_counter() - t0
+    err = np.linalg.norm(keypoint_ik.keypoints_from_motion(model, got) - kps,
+                         axis=-1).mean()
+    lo = model.dof_limits_lower.cpu().numpy()
+    hi = model.dof_limits_upper.cpu().numpy()
+    if not (np.isfinite(got).all() and err < RETARGET_ERR
+            and np.all(got[:, 6:] >= lo - 1e-5)
+            and np.all(got[:, 6:] <= hi + 1e-5)):
+        raise AssertionError(f"phase 11d: round trip error {err} (need < "
+                             f"{RETARGET_ERR}) or frames past the limits")
+
+    robot = urdf.parse_urdf(ARM_URDF)
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.uniform(-0.5, 0.5, (30, robot.num_dofs)),
+                        dtype=torch.float32, device=device)
+    pos = urdf.forward_kinematics(robot, q)[0].cpu().numpy()
+    names = list(keypoint_ik.SMPL_JOINT_NAMES)
+    arm_kps = rng.normal(0, 0.01, (30, len(names), 3)).astype(np.float32)
+    for smpl, link in ARM_MAP.items():
+        arm_kps[:, names.index(smpl)] += pos[:, robot.link_index(link)]
+    before = urdf.retarget_keypoints_to_robot(
+        robot, arm_kps, ARM_MAP, cfg=urdf.UrdfRetargetConfig(iters=0),
+        device=device)[3]
+    profiling.sync(device)
+    t0 = time.perf_counter()
+    *_, after = urdf.retarget_keypoints_to_robot(robot, arm_kps, ARM_MAP,
+                                                 device=device)
+    profiling.sync(device)
+    urdf_s = time.perf_counter() - t0
+    if not (all(np.isfinite(v) for v in after.values())
+            and sum(after.values()) < sum(before.values())):
+        raise AssertionError(f"phase 11d: URDF losses {before} -> {after}")
+    return dict(s=s, iters=cfg.iters, err=err, losses=losses, urdf_s=urdf_s,
+                urdf_iters=urdf.UrdfRetargetConfig().iters,
+                before=before, after=after)
+
+
+def slerp_small_angle(model, a, b):
+    """(T, 34) mask of the frame columns that a slerp from frames ``a`` to
+    ``b`` (root, then each joint) computes in ``rot.slerp``'s small-angle
+    regime (sine of the half angle under 1.1e-3). There the slerp switches
+    to q0 where the cosine rounds to 1 and to the midpoint under 1e-3, so
+    it is discontinuous, and which branch float32 takes flips between two
+    devices (the JAX package's slerp has the same branches)."""
+    from parc_torch.utils import rotation as rot
+
+    def quats(fr):
+        fr = torch.as_tensor(fr, dtype=torch.float64)
+        return torch.cat([rot.exp_map_to_quat(fr[:, 3:6])[:, None],
+                          cm.dof_to_rot(as_f64(model), fr[:, 6:])], 1)
+    c = (quats(a) * quats(b)).sum(-1).abs().clamp(max=1.0)
+    small = (torch.sqrt(1.0 - c * c) < 1.1e-3).numpy()      # (T, J)
+    mask = np.zeros((len(a), 34), bool)
+    mask[:, 3:6] = small[:, 0:1]
+    for j in range(1, model.num_bodies):
+        o, e = model.joint_dof_slice(j)
+        mask[:, 6 + o:6 + e] = small[:, j:j + 1]
+    return mask
+
+
+def edits_phase(clip_path, other_path, device):
+    """11e: the editing and geometry helpers on the card against the CPU,
+    on one of phase 8's clips and its terrain (the match search from it
+    into another)."""
+    from parc_torch.anim import motion_edit as me
+    from parc_torch.retarget import keypoint_ik
+    from parc_torch.utils import rotation as rot
+    clip = md.load_motion_data(clip_path)
+    card, cpu = (humanoid_spec().build(device=d) for d in (device, "cpu"))
+    f = clip.frames.astype(np.float32)
+    errs, small = {}, {}
+
+    def close(name, g, w, edge=None):
+        """Card against CPU within TOOLS_REL; ``edge`` marks the values
+        whose slerp runs in its small-angle regime, held apart."""
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else w
+        if g.shape != w.shape:
+            raise AssertionError(f"phase 11e: {name} {g.shape} vs {w.shape}")
+        d = np.abs(g - w)
+        if edge is not None:
+            small[name] = (int((d[edge] > TOOLS_REL).sum()), int(edge.sum()))
+            d = np.where(edge, 0.0, d)
+        errs[name] = float(d.max())
+        if errs[name] > TOOLS_REL:
+            raise AssertionError(f"phase 11e: {name} card vs CPU "
+                                 f"{errs[name]} (gate {TOOLS_REL})")
+
+    idx = me._linspace(0.0, (len(f) - 1) / clip.fps,
+                       int(round((len(f) - 1) / clip.fps * 20.0)) + 1)
+    i0 = np.clip(np.floor(idx * np.float32(clip.fps)).astype(int), 0,
+                 len(f) - 1)
+    i1 = np.minimum(i0 + 1, len(f) - 1)
+    close("resample_fps", me.resample_fps(card, f, clip.fps, 20.0),
+          me.resample_fps(cpu, f, clip.fps, 20.0),
+          slerp_small_angle(cpu, f[i0], f[i1]))
+    back = f[::-1].copy()
+    edge = np.zeros((2 * len(f) - 8, 34), bool)
+    edge[len(f) - 8:len(f)] = slerp_small_angle(cpu, f[-8:], back[:8])
+    close("blend_motions", me.blend_motions(card, f, back, 8),
+          me.blend_motions(cpu, f, back, 8), edge)
+    close("correct_foot_ground_pen", me.correct_foot_ground_pen(card, f, 0.1),
+          me.correct_foot_ground_pen(cpu, f, 0.1))
+
+    t_card = clip.terrain.to_device(device)
+    t_cpu = clip.terrain.to_device("cpu")
+    got = me.compute_contacts(card, t_card, f).cpu().numpy()
+    want = me.compute_contacts(cpu, t_cpu, f).numpy()
+    differ = np.argwhere(got != want)
+    # a label may flip only where a contact point's nearest cell differs
+    # (a point on a cell edge) or its height sits on the eps band's edge
+    excused = 0
+    if len(differ):
+        def points(model, terrain):
+            fr = torch.as_tensor(f, device=model.device)
+            bp, br = me._fk(model, fr)
+            b = model.contact_point_body
+            p = bp[:, b] + rot.quat_rotate(
+                br[:, b], model.contact_point_offset.expand(bp[:, b].shape))
+            cell = terrain_lib.get_grid_index(terrain, p[..., 0:2])
+            h = (p[..., 2] - model.contact_point_radius
+                 - terrain_lib.get_hf_val(terrain, p[..., 0:2]))
+            return cell.cpu().numpy(), h.cpu().numpy()
+        cell_g, h_g = points(card, t_card)
+        cell_w, h_w = points(cpu, t_cpu)
+        body = cpu.contact_point_body.numpy()
+        for fr, b in differ:
+            pts = body == b
+            if (np.any(cell_g[fr, pts] != cell_w[fr, pts])
+                    or np.any(np.abs(h_w[fr, pts] - 0.04) < 1e-5)
+                    or np.any(np.abs(h_g[fr, pts] - 0.04) < 1e-5)):
+                excused += 1
+            else:
+                raise AssertionError(f"phase 11e: compute_contacts frame "
+                                     f"{fr} body {b} differs card vs CPU")
+    contacts = dict(labels=got.size, differ=len(differ), excused=excused)
+
+    f2 = md.load_motion_data(other_path).frames.astype(np.float32)
+    g = me.search_for_matching_motion_frames(card, f, f2, clip.fps)
+    w = me.search_for_matching_motion_frames(cpu, f, f2, clip.fps)
+    if g[:2] != w[:2]:
+        raise AssertionError(f"phase 11e: match {g[:2]} card, {w[:2]} CPU")
+
+    def same(name, a, b):
+        for fld in ("hf", "hf_mask", "hf_maxmin", "min_point", "dxdy"):
+            if not torch.equal(getattr(a, fld).cpu(), getattr(b, fld)):
+                raise AssertionError(f"phase 11e: {name} {fld} card vs CPU")
+    same("flat_maxpool_3x3", terrain_lib.flat_maxpool_3x3(t_card),
+         terrain_lib.flat_maxpool_3x3(t_cpu))
+    same("downsample_terrain", terrain_lib.downsample_terrain(t_card),
+         terrain_lib.downsample_terrain(t_cpu))
+    hf2 = t_cpu.hf + 0.7 * torch.sin(torch.arange(t_cpu.hf.numel()).reshape(
+        t_cpu.hf.shape).float())
+    mask = torch.rand(t_cpu.hf.shape, generator=torch.Generator().manual_seed(
+        0)) < 0.3
+    merged = terrain_lib.merge_hfs(t_card.hf, mask.to(device),
+                                   t_card.hf_maxmin, hf2.to(device))
+    if not torch.equal(merged.cpu(), terrain_lib.merge_hfs(
+            t_cpu.hf, mask, t_cpu.hf_maxmin, hf2)):
+        raise AssertionError("phase 11e: merge_hfs card vs CPU")
+    body = keypoint_ik.keypoints_from_motion(card, f)
+    same("hf_from_motion", terrain_lib.hf_from_motion(body, device=device),
+         terrain_lib.hf_from_motion(body, device="cpu"))
+    t0 = time.perf_counter()
+    verts, tris = terrain_lib.hf_to_trimesh(
+        clip.terrain.hf, float(clip.terrain.min_point[0]),
+        float(clip.terrain.min_point[1]), float(clip.terrain.dxdy[0]),
+        float(clip.terrain.dxdy[1]))
+    mesh_s = time.perf_counter() - t0
+    tri = verts[tris]
+    area = np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0],
+                                   tri[:, 2] - tri[:, 0]), axis=-1)
+    if not (tris.min() >= 0 and tris.max() < len(verts) and area.min() > 0):
+        raise AssertionError("phase 11e: hf_to_trimesh gave an index out "
+                             "of range or a degenerate triangle")
+    return dict(errs=errs, small=small, contacts=contacts, match=g[:2],
+                mesh=(len(verts), len(tris), mesh_s))
+
+
+def tools_phase(t, k8, device, smi):
+    """Phase 11: the tools on the card, from phases 5, 7 and 8's outputs."""
+    t0 = time.perf_counter()
+    clip_dir = Path(k8["paths"][0]).parent
+    a = metrics_stage(clip_dir, device)
+    print(f"phase 11a: metrics through the CLI on {clip_dir.name}/: "
+          f"{len(a['rows'])} clips in {a['s']:.2f} s "
+          f"({1e3 * a['s'] / len(a['rows']):.1f} ms a clip); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in a["stats"].items())
+          + f"; card vs CPU within {a['worst']:.2e} relative (gate "
+          f"{TOOLS_REL}) | {smi}")
+
+    from parc_torch.tools import fidelity
+    b = fidelity_phase(device)
+    print("phase 11b: fidelity sweeps (run_sweeps, 4 synthetic clips, "
+          f"{b['steps']} control steps a sweep):\n"
+          + fidelity.format_markdown(b["results"]))
+    print(f"phase 11b: s a sweep "
+          + ", ".join(f"{name} {s:.2f}" for name, (s, _) in
+                      zip(b["results"], b["per_sweep"]))
+          + f"; {b['launches']} launches ({b['steps']} a sweep, one a "
+          f"control step); default: " + ", ".join(
+              f"{r.clip} {r.mean_reward:.3f} / {r.survival:.2f}"
+              for r in b["results"]["default"])
+          + f"; at {len(b['wide'])} envs ({FIDELITY_COPIES} copies a clip) "
+          f"{b['wide_s']:.2f} s, {b['wide_launches']} launches, every copy "
+          f"of a clip the same bits; kernel vs plain control step "
+          f"{FIDELITY_CHECK_STEP} "
+          + ", ".join(f"{f} {v:.1e}" for f, v in b["check"]["step_err"].items())
+          + f" (tolerance state {b['check']['tol'][0]:.1e}, contact "
+          f"{b['check']['tol'][1]:.1e}) | {smi}")
+
+    c = validation_phase(t, device)
+    print(f"phase 11c: run_validation from phase 7's checkpoint, "
+          f"{len(c['rows']) // VALIDATION_TOP_K} kin-gen boxes fixtures x "
+          f"{c['batch']} rollouts, {VALIDATION_SECONDS} s paths, top "
+          f"{VALIDATION_TOP_K}: {len(c['rows'])} rows in {c['s']:.1f} s "
+          f"(generation " + ", ".join(f"{g:.2f}" for g in c["gen_s"])
+          + f" s a fixture, {c['denoise']} denoiser calls); "
+          + ", ".join(f"{k} {v:.4g}" for k, v in c["summary"].items())
+          + f" | {smi}")
+
+    d = retarget_phase(device)
+    print(f"phase 11d: retarget_keypoints, the walking clip's 30 frames at "
+          f"RetargetConfig() ({d['iters']} Adam iterations): {d['s']:.2f} s, "
+          f"{1e3 * d['s'] / d['iters']:.2f} ms an iteration; round trip "
+          f"mean keypoint error {d['err']:.4f} m (gate {RETARGET_ERR}); "
+          f"final losses " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       d["losses"].items())
+          + f"; the arm URDF: {d['urdf_iters']} iterations in "
+          f"{d['urdf_s']:.2f} s ({1e3 * d['urdf_s'] / d['urdf_iters']:.2f} "
+          f"ms each), total loss {sum(d['before'].values()):.4g} -> "
+          f"{sum(d['after'].values()):.4g} | {smi}")
+
+    e = edits_phase(k8["paths"][0], k8["paths"][-1], device)
+    print(f"phase 11e: editing helpers, card vs CPU: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in e["errs"].items())
+          + f" (gate {TOOLS_REL}; in the slerp's small-angle regime, held "
+          f"apart, " + ", ".join(f"{k} {n} of {m} values past it" for k, (
+              n, m) in e["small"].items())
+          + f"); compute_contacts {e['contacts']['differ']}"
+          f" of {e['contacts']['labels']} labels differ, all on a cell edge "
+          f"or the eps band's edge; match frames {e['match']} on both; "
+          f"flat_maxpool_3x3, downsample_terrain, merge_hfs, hf_from_motion "
+          f"equal; hf_to_trimesh {e['mesh'][0]} vertices, {e['mesh'][1]} "
+          f"triangles in {e['mesh'][2]:.3f} s, valid | {smi}")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=b["launches"] + b["wide_launches"])
+
+
 def dp_worker(argv):
     """The ranks of phase 10, started by torchrun (``--dp-worker``)."""
     if argv[0] == "a":
@@ -2985,6 +3490,7 @@ def main():
     k8 = kin_gen_phase(t, device, smi)
     p9 = parkour_phase(t, device, smi)
     p10 = dp_phase(t, p9, device, smi)
+    p11 = tools_phase(t, k8, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -3002,6 +3508,7 @@ def main():
                              "kin_gen": k8["launches"],
                              "parkour": p9["launches"],
                              "ddp": p10["launches"],
+                             "fidelity": p11["launches"],
                              "quadruped": q["launches"]},
         "quadruped": {"ms": q["ms"], "plain_ms": q["plain_ms"],
                       "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from parc_torch import resolve_device
 from parc_torch.utils import rotation as rot
 
 # ---------------------------------------------------------------------------
@@ -176,7 +177,7 @@ class CharModelSpec:
     name: str
     bodies: List[BodySpec]
 
-    def build(self, device="cpu") -> "CharModel":
+    def build(self, device="cuda") -> "CharModel":
         return build_char_model(self, device=device)
 
 
@@ -251,8 +252,9 @@ class CharModel:
         return self.replace(**moved)
 
 
-def build_char_model(spec: CharModelSpec, device="cpu") -> CharModel:
-    """Tables of a CharModelSpec, built in float64 and stored in float32."""
+def build_char_model(spec: CharModelSpec, device="cuda") -> CharModel:
+    """Tables of a CharModelSpec, built in float64 and stored in float32,
+    on ``device`` (the card unless the caller asks for the CPU)."""
     bodies = spec.bodies
     n = len(bodies)
     parent_indices = tuple(b.parent for b in bodies)
@@ -352,7 +354,7 @@ def build_char_model(spec: CharModelSpec, device="cpu") -> CharModel:
         contact_point_radius=f32(np.asarray(cp_rad)),
         dof_map=f32(dof_map),
     )
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +560,7 @@ def parse_mjcf(path: str) -> CharModelSpec:
                          bodies=bodies)
 
 
-def load_char_file(path: str, device="cpu") -> CharModel:
+def load_char_file(path: str, device="cuda") -> CharModel:
     """The CharModel of an MJCF file, on ``device``."""
     return parse_mjcf(path).build(device=device)
 

@@ -14,6 +14,7 @@ Stages (those of the JAX package's CLI ported so far):
     python -m parc_torch.pipeline.cli record --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli eval --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli setup_iter --root R --iter N
+    python -m parc_torch.pipeline.cli metrics --motions_dir K [--out m.csv]
 
 Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the plain PyTorch versions on the CPU). Any flag can also come from a YAML
@@ -347,6 +348,26 @@ def _clip_files(motions_dir: str):
                   + glob.glob(os.path.join(motions_dir, "*.pkl")))
 
 
+def stage_metrics(cfg: dict):
+    """Per-clip quality metrics + dataset statistics for a motion dir
+    (reference: tools/motion_tests/compute_losses.py, compute_stats.py);
+    writes the CSV (``--out``, default ``<motions_dir>/metrics.csv``) and
+    returns the rows and the statistics."""
+    from parc_torch.anim import motion_data as md
+    from parc_torch.tools import metrics
+    model = _build_model(_device(cfg))
+    motions_dir = cfg["motions_dir"]
+    csv_path = cfg.get("out", os.path.join(motions_dir, "metrics.csv"))
+    rows = metrics.evaluate_motion_dir(model, motions_dir, csv_path=csv_path)
+    print(f"wrote {csv_path} ({len(rows)} clips)")
+    motions = [md.load_motion_data(os.path.join(motions_dir, r["file"]))
+               for r in rows]
+    stats = metrics.dataset_statistics(model, motions) if motions else {}
+    for k, v in stats.items():
+        print(f"{k}: {v:.4f}")
+    return rows, stats
+
+
 def stage_augment(cfg: dict):
     """Batch terrain-aware augmentation of an existing motion set
     (reference: tools/motion_opt/augment_motions.py); returns the written
@@ -409,6 +430,7 @@ STAGES = {
     "setup_iter": stage_setup_iter,
     "augment": stage_augment,
     "optimize": stage_optimize,
+    "metrics": stage_metrics,
 }
 
 

@@ -189,6 +189,70 @@ def point_hf_penetration(terrain: Terrain,
     return points[..., 2] - get_hf_val(terrain, points[..., 0:2])
 
 
+def get_point(terrain: Terrain, ij: torch.Tensor) -> torch.Tensor:
+    """Cell-center world xy from integer grid indices."""
+    return terrain.min_point + ij.to(terrain.min_point.dtype) * terrain.dxdy
+
+
+# ---------------------------------------------------------------------------
+# Observation sampling (envs/perception.py's patterns are laid out and
+# rotated differently: these are the JAX package's generic helpers)
+# ---------------------------------------------------------------------------
+
+
+def local_grid_points(center_xy: torch.Tensor, heading: torch.Tensor,
+                      num_x: int, num_y: int, dx: float, dy: float,
+                      center_offset_x: float = 0.0) -> torch.Tensor:
+    """Heading-rotated regular xy sample grid around a character.
+
+    Returns (..., num_x * num_y, 2) world points. Used for the MDM local
+    31x31 heightfield window and grid-style env observations.
+    """
+    dev = center_xy.device
+    xs = (torch.arange(num_x, device=dev) - (num_x - 1) / 2.0) * dx \
+        + center_offset_x
+    ys = (torch.arange(num_y, device=dev) - (num_y - 1) / 2.0) * dy
+    gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+    pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)  # (P, 2)
+    c, s = torch.cos(heading)[..., None], torch.sin(heading)[..., None]
+    rx = c * pts[..., 0] - s * pts[..., 1]
+    ry = s * pts[..., 0] + c * pts[..., 1]
+    return torch.stack([rx, ry], dim=-1) + center_xy[..., None, :]
+
+
+def cone_ray_points(center_xy: torch.Tensor, heading: torch.Tensor,
+                    num_rays_behind: int = 2, num_rays_ahead: int = 60,
+                    num_cone_rays: int = 3,
+                    cone_angle: float = 15.0 * np.pi / 180.0,
+                    ray_dx: float = 0.05) -> torch.Tensor:
+    """Cone-of-rays sample pattern ahead of the character.
+
+    A center line of samples from ``-behind`` to ``+ahead`` along the heading
+    with ``num_cone_rays`` additional rays fanned out on each side
+    (reference: envs/ig_parkour/ig_parkour_env.py:139-155).
+
+    Returns (..., P, 2) world points where
+    ``P = (behind + ahead + 1) * (2 * num_cone_rays + 1)``.
+    """
+    dev = center_xy.device
+    t = torch.arange(-num_rays_behind, num_rays_ahead + 1,
+                     device=dev) * ray_dx                        # (L,)
+    angles = torch.arange(-num_cone_rays, num_cone_rays + 1,
+                          device=dev) * cone_angle               # (R,)
+    ang = heading[..., None, None] + angles[None, :, None]       # (..., R, 1)
+    dist = t[None, None, :]
+    pts = torch.stack([torch.cos(ang) * dist, torch.sin(ang) * dist],
+                      dim=-1)                                    # (..., R, L, 2)
+    pts = pts.reshape(pts.shape[:-3] + (-1, 2))
+    return pts + center_xy[..., None, :]
+
+
+def sample_hf_obs(terrain: Terrain, points_xy: torch.Tensor,
+                  root_pos: torch.Tensor) -> torch.Tensor:
+    """Heights at sample points, expressed relative to the root height."""
+    return get_hf_val(terrain, points_xy) - root_pos[..., 2:3]
+
+
 def compute_hf_mask_inds(terrain: Terrain, body_points: torch.Tensor,
                          pad_cells: int = 1) -> torch.Tensor:
     """Boolean (H, W) mask of cells touched by character body points.
@@ -371,6 +435,73 @@ def flat_maxpool_2x2(terrain: Terrain) -> Terrain:
     return dataclasses.replace(terrain, hf=hf)
 
 
+def _pool2d(hf: torch.Tensor, size: int, mode: str) -> torch.Tensor:
+    """``lax.reduce_window`` max or min, ``size`` x ``size``, stride 1,
+    "SAME" padding."""
+    return pool_same(hf, size, size, mode)
+
+
+def flat_maxpool_3x3(terrain: Terrain) -> Terrain:
+    """Snap each non-overlapping 3x3 block to its max height; a trailing
+    partial block is left untouched (reference: util/terrain_util.py:
+    2099-2113, a viewer terrain-edit op)."""
+    hf = terrain.hf
+    h, w = hf.shape
+    h3, w3 = h - h % 3, w - w % 3
+    blocks = hf[:h3, :w3].reshape(h3 // 3, 3, w3 // 3, 3)
+    pooled = torch.amax(blocks, dim=(1, 3))
+    hf = hf.clone()
+    hf[:h3, :w3] = pooled.repeat_interleave(3, 0).repeat_interleave(3, 1)
+    return dataclasses.replace(terrain, hf=hf)
+
+
+def downsample_terrain(terrain: Terrain) -> Terrain:
+    """Halve the grid resolution: 2x2 max-pool of heights, OR of the mask,
+    doubled cell size (reference: util/terrain_util.py:1631-1673, a viewer
+    terrain-edit op).  Unlike the reference (which resets them), the
+    augmentation bounds are pooled conservatively (max of maxes / min of
+    mins)."""
+    h, w = terrain.hf.shape
+    h2, w2 = (h // 2) * 2, (w // 2) * 2
+
+    def blocks(a):
+        return a[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2)
+
+    return Terrain(
+        hf=torch.amax(blocks(terrain.hf), dim=(1, 3)),
+        hf_mask=torch.any(torch.any(blocks(terrain.hf_mask), dim=3), dim=1),
+        hf_maxmin=torch.stack(
+            [torch.amax(blocks(terrain.hf_maxmin[..., 0]), dim=(1, 3)),
+             torch.amin(blocks(terrain.hf_maxmin[..., 1]), dim=(1, 3))],
+            dim=-1),
+        min_point=terrain.min_point,
+        dxdy=terrain.dxdy * 2,
+    )
+
+
+def remove_sharp_lines(hf: np.ndarray, eps: float = 0.1) -> np.ndarray:
+    """Smooth single-cell ridges/grooves: a cell strictly above (below) both
+    its x- or both its y-neighbours by ``eps`` snaps to the min (max) of its
+    4-neighbourhood.  Sequential raster scan like the reference (updated
+    cells feed later detections; util/terrain_util.py:260-290, a viewer
+    terrain-edit op).  Host numpy — grids are small."""
+    hf = np.array(hf, copy=True)
+    h, w = hf.shape
+    for i in range(1, h - 1):
+        for j in range(1, w - 1):
+            c = hf[i, j]
+            nbrs = (hf[i - 1, j], hf[i + 1, j], hf[i, j - 1], hf[i, j + 1])
+            high = ((c > nbrs[0] + eps and c > nbrs[1] + eps)
+                    or (c > nbrs[2] + eps and c > nbrs[3] + eps))
+            low = ((c < nbrs[0] - eps and c < nbrs[1] - eps)
+                   or (c < nbrs[2] - eps and c < nbrs[3] - eps))
+            if high:
+                hf[i, j] = min(nbrs)
+            elif low:
+                hf[i, j] = max(nbrs)
+    return hf
+
+
 def flatten_4x4_near_edge(hf: np.ndarray, grid_ind, height: float
                           ) -> np.ndarray:
     """Flatten a 4x4 region around a grid cell to ``height``, aligned so
@@ -384,6 +515,20 @@ def flatten_4x4_near_edge(hf: np.ndarray, grid_ind, height: float
     y0 = j - 2 if j % 2 == 0 else j - 1
     hf[max(x0, 0):x0 + 4, max(y0, 0):y0 + 4] = height
     return hf
+
+
+def merge_hfs(hf1: torch.Tensor, hf_mask: torch.Tensor,
+              hf_maxmin: Optional[torch.Tensor],
+              hf2: torch.Tensor) -> torch.Tensor:
+    """Merge a motion-protected heightfield with a free-form edit: keep
+    ``hf1`` where the motion mask is set, take ``hf2`` elsewhere, clamped
+    into the motion-aware ``hf_maxmin`` bounds (reference:
+    util/terrain_util.py:1349-1365 merge_hfs)."""
+    merged = torch.where(hf_mask, hf1, hf2)
+    if hf_maxmin is not None:
+        clamped = clip(merged, hf_maxmin[..., 1], hf_maxmin[..., 0])
+        merged = torch.where(hf_mask, merged, clamped)
+    return merged
 
 
 # ---------------------------------------------------------------------------
@@ -593,3 +738,259 @@ def gen_curvy_paths(rng: np.random.Generator, hf: np.ndarray,
             if not (0 <= pos[0] < h and 0 <= pos[1] < w):
                 break
     return out
+
+
+
+# ---------------------------------------------------------------------------
+# Export meshes and course / motion-driven generators (host numpy; the
+# generators make the JAX package's np.random.Generator calls in order)
+# ---------------------------------------------------------------------------
+
+
+def _mesher_lib():
+    import ctypes
+
+    from parc_torch import cuda_build
+    lib = cuda_build.load_host("mesher", ("mesher.cpp",))
+    lib.parc_hf_mesh.restype = ctypes.c_int32
+    lib.parc_hf_mesh.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64)]
+    return lib
+
+
+def hf_to_trimesh(hf: np.ndarray, min_x: float, min_y: float, dx: float,
+                  dy: float, skirt_depth: float = 10.0
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Heightfield -> voxelized trimesh by the native mesher
+    (``native/mesher.cpp``, built with g++ at first use; raises where it
+    does not build). Each cell is a flat top quad plus a side quad toward
+    every lower neighbour, and a skirt around the border.
+
+    Returns (verts (V, 3) float32, tris (T, 3) int32).
+    """
+    import ctypes
+    lib = _mesher_lib()
+    hf = np.ascontiguousarray(hf, np.float32)
+    h, w = hf.shape
+    nv, nt = ctypes.c_int64(), ctypes.c_int64()
+    hf_p = hf.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    args = (hf_p, h, w, min_x, min_y, dx, dy, skirt_depth)
+    if lib.parc_hf_mesh(*args, None, None, ctypes.byref(nv),
+                        ctypes.byref(nt)) != 0:
+        raise ValueError("bad mesher arguments")
+    verts = np.empty((nv.value, 3), np.float32)
+    tris = np.empty((nt.value, 3), np.int32)
+    if lib.parc_hf_mesh(
+            *args, verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            tris.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.byref(nv), ctypes.byref(nt)) != 0:
+        raise ValueError("bad mesher arguments")
+    return verts, tris
+
+
+def hf_to_voxelized_trimesh(hf: np.ndarray, min_x: float, min_y: float,
+                            dx: float, use_native: bool = True):
+    """Minecraft-style mesh export (verts, faces) of a heightfield.
+
+    ``use_native`` builds it with the native mesher (:func:`hf_to_trimesh`:
+    only the non-coplanar side quads plus a border skirt); otherwise the
+    vectorized numpy version below (every top quad and every side quad
+    between neighbours). The simulator never needs it: it collides with
+    the heightfield itself.
+    """
+    if use_native:
+        return hf_to_trimesh(hf, float(min_x), float(min_y), float(dx),
+                             float(dx))
+    h, w = hf.shape
+    half = dx / 2.0
+    xs = min_x + np.arange(h) * dx
+    ys = min_y + np.arange(w) * dx
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    # 4 top corners per cell
+    cx = np.stack([gx - half, gx + half, gx + half, gx - half], -1)
+    cy = np.stack([gy - half, gy - half, gy + half, gy + half], -1)
+    cz = np.repeat(hf[..., None], 4, axis=-1)
+    verts = np.stack([cx, cy, cz], -1).reshape(-1, 3)
+    base = 4 * np.arange(h * w).reshape(h, w)
+    top1 = np.stack([base, base + 1, base + 2], -1).reshape(-1, 3)
+    top2 = np.stack([base, base + 2, base + 3], -1).reshape(-1, 3)
+    faces = [top1, top2]
+    # vertical side quads between x-neighbors
+    b0, b1 = base[:-1, :], base[1:, :]
+    # cell i side (+x) uses corners 1,2 ; cell i+1 side (-x) corners 0,3
+    faces.append(np.stack([b0 + 1, b1, b0 + 2], -1).reshape(-1, 3))
+    faces.append(np.stack([b0 + 2, b1, b1 + 3], -1).reshape(-1, 3))
+    c0, c1 = base[:, :-1], base[:, 1:]
+    faces.append(np.stack([c0 + 2, c1, c0 + 3], -1).reshape(-1, 3))
+    faces.append(np.stack([c0 + 3, c1, c1 + 1], -1).reshape(-1, 3))
+    return verts, np.concatenate(faces, 0)
+
+
+def _centered(hf: np.ndarray, dx: float, device) -> Terrain:
+    """A terrain of ``hf`` centred on the origin."""
+    x_dim, y_dim = hf.shape
+    t = create_terrain(x_dim, y_dim, dx=dx, min_x=-x_dim * dx / 2,
+                       min_y=-y_dim * dx / 2, device=device)
+    return dataclasses.replace(t, hf=torch.as_tensor(hf,
+                                                     device=t.hf.device))
+
+
+def linear_parkour_course(rng: np.random.Generator, x_dim: int = 48,
+                          y_dim: int = 16, dx: float = 0.4,
+                          num_blocks: int = 6,
+                          height_range: Tuple[float, float] = (-1.0, 1.5),
+                          width_range: Tuple[int, int] = (2, 6),
+                          device="cuda") -> Terrain:
+    """Linear parkour course: a runway along x with raised/lowered blocks at
+    random stations (reference: util/terrain_util.py:320-543
+    linear/random_linear_parkour_course — hf-based; the reference also
+    emits a trimesh, which here comes from hf_to_voxelized_trimesh)."""
+    hf = np.zeros((x_dim, y_dim), np.float32)
+    stations = np.sort(rng.choice(
+        np.arange(4, x_dim - 4), size=num_blocks, replace=False))
+    for cx in stations:
+        h = rng.uniform(*height_range)
+        wx = rng.integers(*width_range)
+        wy = rng.integers(y_dim // 3, y_dim)
+        y0 = rng.integers(0, max(y_dim - wy, 1))
+        hf[cx:cx + wx, y0:y0 + wy] = h
+    return _centered(hf, dx, device)
+
+
+def random_linear_parkour_course(rng: np.random.Generator,
+                                 x_dim: int = 64, y_dim: int = 16,
+                                 dx: float = 0.4,
+                                 min_block_spacing: float = 6.5,
+                                 max_block_spacing: float = 8.0,
+                                 gap_width: float = 1.2,
+                                 gap_height: float = -1.5,
+                                 vault_width: float = 0.8,
+                                 vault_height: float = 1.0,
+                                 num_padding_cells: int = 2,
+                                 device="cuda") -> Terrain:
+    """Randomized linear parkour course (reference:
+    util/terrain_util.py:427-543 random_linear_parkour_course):
+    stations along the course axis spaced alternately by the min/max block
+    spacing (coin flip per station), each a full-width **vault** (raised
+    block to climb over) or **gap** (pit to jump across). The reference
+    also emits a bespoke trimesh for PhysX; here the hf itself is the
+    collision geometry (hf_to_voxelized_trimesh only for export)."""
+    hf = np.zeros((x_dim, y_dim), np.float32)
+    x = 0.0
+    max_x_len = x_dim * dx
+    centers = []
+    while True:
+        x += min_block_spacing if rng.random() < 0.5 else max_block_spacing
+        if x >= max_x_len:
+            break
+        centers.append(int(round(x / dx)) + num_padding_cells)
+    for c in centers:
+        if c >= x_dim - num_padding_cells:
+            continue
+        is_vault = rng.random() < 0.5
+        h = vault_height if is_vault else gap_height
+        w = vault_width if is_vault else gap_width
+        wc = max(int(round(w / dx)) // 2, 1)
+        lo, hi = max(c - wc, 0), min(c + wc + 1, x_dim)
+        hf[lo:hi, :] = h
+    return _centered(hf, dx, device)
+
+
+def hf_from_motion(body_pos: np.ndarray, dx: float = 0.4,
+                   num_neg_x: int = 15, num_pos_x: int = 15,
+                   num_neg_y: int = 15, num_pos_y: int = 15,
+                   min_height: float = -2.0,
+                   ground_height: float = 0.0,
+                   floor_heights: Optional[np.ndarray] = None,
+                   canon_idx: int = 0, device="cuda") -> Terrain:
+    """Path-under-the-motion heightfield (reference:
+    util/terrain_util.py:597-700 hf_from_motion): a low floor at
+    ``min_height`` with a walkable path at ``ground_height`` (or the
+    per-frame ``floor_heights``) carved under every body position.  Used
+    to synthesize per-motion terrains for clips that have none.
+
+    ``body_pos`` is (T, B, 3) world body positions (FK output); the grid
+    is centered on the root/body position of frame ``canon_idx``.
+    Returns a Terrain with ``hf_mask`` marking the path cells.
+    """
+    body_pos = np.asarray(body_pos)
+    center = body_pos[canon_idx, 0, 0:2]
+    min_point = center - dx * np.asarray([num_neg_x, num_neg_y])
+    dims = (num_neg_x + num_pos_x + 1, num_neg_y + num_pos_y + 1)
+    hf = np.full(dims, min_height, np.float32)
+    mask = np.zeros(dims, bool)
+    ij = np.round((body_pos[..., 0:2] - min_point) / dx).astype(np.int64)
+    ij = np.clip(ij, 0, np.asarray(dims) - 1)       # (T, B, 2)
+    if floor_heights is not None:
+        # per-frame floor height, written per body column (T-major so the
+        # path under later frames wins like the reference's CPU scatter)
+        fh = np.broadcast_to(np.asarray(floor_heights, np.float32)[:, None],
+                             ij.shape[:2])
+        hf[ij[..., 0].ravel(), ij[..., 1].ravel()] = fh.ravel()
+    else:
+        hf[ij[..., 0].ravel(), ij[..., 1].ravel()] = ground_height
+    mask[ij[..., 0].ravel(), ij[..., 1].ravel()] = True
+    t = create_terrain(dims[0], dims[1], dx=dx, min_x=float(min_point[0]),
+                       min_y=float(min_point[1]), device=device)
+    return dataclasses.replace(
+        t, hf=torch.as_tensor(hf, device=t.hf.device),
+        hf_mask=torch.as_tensor(mask, device=t.hf.device))
+
+
+def hf_from_motion_discrete_heights(terrain: Terrain,
+                                    body_pos: np.ndarray,
+                                    heights) -> Terrain:
+    """Snap motion-touched cells to discrete height levels (reference:
+    util/terrain_util.py:697-737 hf_from_motion_discrete_heights, driven
+    by the MOTION_FORGE terrain GUI, terrain_gui.py:182).
+
+    ``heights`` is an ascending list of allowed levels.  Per cell, the
+    minimum body z that passed over it (min-pooled 7x7 like the
+    reference) picks the first level above ``min_z - 0.5``; cells the
+    motion never touched (``hf_mask`` False) drop to ``heights[0]``.
+
+    ``body_pos`` is (T, B, 3) world body positions (FK output).
+    """
+    heights = np.asarray(heights, np.float32)
+    if heights.ndim != 1 or heights.size == 0 or np.any(np.diff(heights) < 0):
+        raise ValueError("heights must be a non-empty ascending sequence")
+    dims = terrain.dims
+    dev = terrain.hf.device
+    mn = terrain.min_point.cpu().numpy()
+    dxdy = terrain.dxdy.cpu().numpy()
+    pts = np.asarray(body_pos).reshape(-1, 3)
+    ij = np.round((pts[:, 0:2] - mn) / dxdy).astype(np.int64)
+    ij = np.clip(ij, 0, np.asarray(dims) - 1)
+    min_h = np.full(dims, heights[-1], np.float32)
+    np.minimum.at(min_h, (ij[:, 0], ij[:, 1]), pts[:, 2].astype(np.float32))
+    min_h = minpool_hf(torch.as_tensor(min_h, device=dev), None,
+                       7).cpu().numpy()
+    # first (lowest) level strictly above min_z - 0.5; none -> heights[0]
+    k = np.searchsorted(heights, min_h - 0.5, side="right")
+    snapped = heights[np.where(k < heights.size, k, 0)]
+    mask = terrain.hf_mask.cpu().numpy()
+    hf = np.where(mask, snapped, heights[0]).astype(np.float32)
+    return dataclasses.replace(terrain, hf=torch.as_tensor(hf, device=dev))
+
+
+def generate_cave(rng: np.random.Generator, x_dim: int = 48,
+                  y_dim: int = 48, dx: float = 0.4,
+                  num_iterations: int = 5, fill_p: float = 0.5,
+                  birth_threshold: int = 6, death_threshold: int = 4,
+                  wall_height: float = 3.0, device="cuda") -> Terrain:
+    """Cellular-automata cave terrain (reference:
+    util/terrain_util.py:2137-2166): random fill then birth/death smoothing;
+    alive cells become walls."""
+    alive = rng.random((x_dim, y_dim)) < fill_p
+    for _ in range(num_iterations):
+        padded = np.pad(alive.astype(np.int32), 1)
+        count = sum(padded[1 + di:x_dim + 1 + di, 1 + dj:y_dim + 1 + dj]
+                    for di in (-1, 0, 1) for dj in (-1, 0, 1))
+        birth = (count >= birth_threshold) & ~alive
+        death = (count <= death_threshold) & alive
+        alive = (alive | birth) & ~death
+    return _centered(alive.astype(np.float32) * wall_height, dx, device)

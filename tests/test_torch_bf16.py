@@ -54,7 +54,7 @@ def test_bf16_trunk_cpu():
 
 
 def test_agent_uses_bf16_on_cuda_only():
-    env = DeepMimicEnv(humanoid_spec().build(), engine.SimParams(),
+    env = DeepMimicEnv(humanoid_spec().build(device="cpu"), engine.SimParams(),
                        EnvConfig(num_envs=2), device="cpu")
     cfg = PPOConfig(actor_net="fc_2layers_512units",
                     critic_net="fc_2layers_512units")
@@ -72,7 +72,7 @@ def cuda():
 @pytest.mark.cuda
 def test_bf16_trunk_on_card(cuda):
     _bf16_vs_f32(cuda, 4096)
-    env = DeepMimicEnv(humanoid_spec().build(), engine.SimParams(),
+    env = DeepMimicEnv(humanoid_spec().build(device="cpu"), engine.SimParams(),
                        EnvConfig(num_envs=2), device=cuda)
     agent = PPOAgent(env, PPOConfig(), device=cuda)
     assert agent.net.actor_trunk.compute_dtype == torch.bfloat16

@@ -41,6 +41,8 @@ from parc_torch.physics import engine as te
 from parc_torch.physics import substep as tsub
 from parc_torch.utils import terrain as tterrain
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 N = 8
@@ -96,12 +98,12 @@ def test_export_and_parse_mjcf(tmp_path, name):
     package's text; the port parses the JAX-exported file into the model
     the JAX package parses from it."""
     tspec, jspec = SPECS[name]
-    assert_models_equal(tspec().build(), jspec().build())
+    assert_models_equal(tspec().build(device="cpu"), jspec().build())
     text = jcm.export_mjcf(jspec())
     assert tcm.export_mjcf(tspec()) == text
     path = tmp_path / f"{name}.xml"
     path.write_text(text)
-    got = tcm.load_char_file(str(path))
+    got = tcm.load_char_file(str(path), device="cpu")
     assert_models_equal(got, jcm.load_char_file(str(path)))
     if name == "quadruped":
         assert got.num_bodies == 13 and got.dof_size == 12
@@ -142,7 +144,7 @@ def test_parse_mesh_assets(tmp_path):
             assert (gg.kind, gg.pos, gg.quat, gg.density) == \
                 (wg.kind, wg.pos, wg.quat, wg.density)
             np.testing.assert_array_equal(gg.verts, wg.verts)
-    assert_models_equal(tcm.load_char_file(str(path)),
+    assert_models_equal(tcm.load_char_file(str(path), device="cpu"),
                         jcm.load_char_file(str(path)))
     assert tcm.export_mjcf(got) == jcm.export_mjcf(want)
 
@@ -150,7 +152,7 @@ def test_parse_mesh_assets(tmp_path):
 def test_clamp_dof():
     """clamp_dof with and without a margin, on dofs past both limits."""
     for tspec, jspec in SPECS.values():
-        tm, jm = tspec().build(), jspec().build()
+        tm, jm = tspec().build(device="cpu"), jspec().build()
         rng = np.random.default_rng(0)
         lo = np.asarray(jm.dof_limits_lower)
         hi = np.asarray(jm.dof_limits_upper)
@@ -203,7 +205,7 @@ def test_quadruped_control_step(mode):
     standing pose, feet in a bumpy stacked terrain) against the JAX
     package's, 5 steps, each from the JAX state before it; the state
     within 2e-4, or twice the port's own f32 error against float64."""
-    jm, tm = jquad.quadruped_spec().build(), tquad.quadruped_spec().build()
+    jm, tm = jquad.quadruped_spec().build(), tquad.quadruped_spec().build(device="cpu")
     rng = np.random.default_rng(1)
     stand = tquad.standing_pose_dof()
     dof = (stand + rng.normal(0, 0.15, (N, 12))).astype(np.float32)
@@ -222,7 +224,7 @@ def test_quadruped_control_step(mode):
     act = (stand + rng.normal(0, 0.1, (N, 12))).astype(np.float32)
     jts, tts = _bumpy(rng)
     tidx = np.arange(N) % 2
-    step = jax.jit(lambda s: je.control_step(
+    step = jit(lambda s: je.control_step(
         jm, je.SimParams(control_mode=mode, **ROBOT), jts, s,
         jnp.asarray(act), terrain_idx=jnp.asarray(tidx, jnp.int32)))
     tparams = te.SimParams(control_mode=mode, **ROBOT)
@@ -263,7 +265,7 @@ def test_quadruped_stand_and_collapse():
     """The quadruped stands 30 control steps under PD and collapses in 45
     without stiffness (tests/test_physics.py:234-270), through the port's
     engine."""
-    quad = tquad.quadruped_spec().build()
+    quad = tquad.quadruped_spec().build(device="cpu")
     flat = tterrain.create_terrain(64, 64, dx=0.4, min_x=-12.8, min_y=-12.8,
                                    device="cpu")
     dof = torch.as_tensor(tquad.standing_pose_dof())

@@ -16,6 +16,8 @@ from parc_tpu.data.humanoid import humanoid_spec as jspec
 from parc_torch.anim import char_model as tcm
 from parc_torch.data.humanoid import humanoid_spec as tspec
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 TABLES = ("local_translation", "local_rotation", "joint_axes",
@@ -29,7 +31,7 @@ TOPOLOGY = ("body_names", "joint_names", "parent_indices", "joint_types",
 
 @pytest.fixture(scope="module")
 def models():
-    return jspec().build(), tspec().build()
+    return jspec().build(), tspec().build(device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -92,18 +94,18 @@ def test_mesh_geom():
 def test_dof_maps(models, pose):
     jm, tm = models
     dof = pose["dof"]
-    em = np.array(jax.jit(lambda d: jcm.joint_exp_maps(jm, d))(dof))
+    em = np.array(jit(lambda d: jcm.joint_exp_maps(jm, d))(dof))
     np.testing.assert_allclose(
         tcm.joint_exp_maps(tm, torch.as_tensor(dof)).numpy(), em, atol=1e-6)
     np.testing.assert_allclose(
         tcm.project_to_dof(tm, torch.as_tensor(em)).numpy(),
         np.asarray(jcm.project_to_dof(jm, jnp.asarray(em))), atol=1e-6)
-    jr = np.array(jax.jit(lambda d: jcm.dof_to_rot(jm, d))(dof))
+    jr = np.array(jit(lambda d: jcm.dof_to_rot(jm, d))(dof))
     tr = tcm.dof_to_rot(tm, torch.as_tensor(dof))
     np.testing.assert_allclose(tr.numpy(), jr, atol=1e-5)
     np.testing.assert_allclose(
         tcm.rot_to_dof(tm, tr).numpy(),
-        np.asarray(jax.jit(lambda q: jcm.rot_to_dof(jm, q))(jr)), atol=1e-5)
+        np.asarray(jit(lambda q: jcm.rot_to_dof(jm, q))(jr)), atol=1e-5)
 
 
 def test_forward_kinematics_and_velocities(models, pose):
@@ -117,7 +119,7 @@ def test_forward_kinematics_and_velocities(models, pose):
 
     args = (pose["root_pos"], pose["root_rot"], jr, pose["root_vel"],
             pose["root_ang_vel"], pose["dof_vel"])
-    want = jax.jit(jax_fn)(*args)
+    want = jit(jax_fn)(*args)
     t = [torch.as_tensor(a) for a in args]
     bp, br = tcm.forward_kinematics(tm, t[0], t[1], t[2])
     bv, ba = tcm.body_vel_from_dof_vel(tm, br, t[3], t[4], bp, t[5])
@@ -130,7 +132,7 @@ def test_forward_kinematics_and_velocities(models, pose):
 def test_frame_dof_vel(models, pose):
     jm, tm = models
     jr = np.array(jcm.dof_to_rot(jm, jnp.asarray(pose["seq"])))
-    want = jax.jit(lambda q: jcm.compute_frame_dof_vel(jm, q, 1.0 / 30))(jr)
+    want = jit(lambda q: jcm.compute_frame_dof_vel(jm, q, 1.0 / 30))(jr)
     got = tcm.compute_frame_dof_vel(tm, torch.as_tensor(jr), 1.0 / 30)
     # finite differences scaled by fps = 30: 30x the rotation tolerance
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-4)

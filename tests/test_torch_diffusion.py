@@ -23,6 +23,8 @@ Tolerances (f32):
 - the rot changer: 1e-5 absolute.
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -57,6 +59,14 @@ def jit(fn, **kw):
     f32 rounding."""
     return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0},
                    **kw)
+
+
+@pytest.fixture
+def jax_jit_opt0(monkeypatch):
+    """The JAX package's own ``jax.jit`` calls at XLA's backend
+    optimization level 0, as :func:`jit` compiles the tests' references."""
+    monkeypatch.setattr(jax, "jit", functools.partial(
+        jax.jit, compiler_options={"xla_backend_optimization_level": 0}))
 
 
 def _t(x, dtype=None):

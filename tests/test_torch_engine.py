@@ -35,6 +35,8 @@ from parc_torch.physics import substep as tsub
 from parc_torch.utils import rotation as trot
 from parc_torch.utils import terrain as tterrain
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 N = 8
@@ -44,7 +46,7 @@ STATE_FIELDS = ("root_pos", "joint_rot", "dof_vel", "body_pos")
 
 @pytest.fixture(scope="module")
 def models():
-    return jspec().build(), tspec().build()
+    return jspec().build(), tspec().build(device="cpu")
 
 
 def _state_arrays(jm, seed, limit_push=False, z=(0.55, 0.75), spread=1.0):
@@ -78,7 +80,7 @@ def _state_arrays(jm, seed, limit_push=False, z=(0.55, 0.75), spread=1.0):
 def _both_states(jm, tm, arrs):
     keys = ("root_pos", "root_rot", "joint_rot", "root_vel", "root_ang_vel",
             "dof_vel")
-    js = jax.jit(lambda *a: je.create_state(jm, *a))(
+    js = jit(lambda *a: je.create_state(jm, *a))(
         *[jnp.asarray(arrs[k]) for k in keys])
     ts = te.create_state(tm, *[arrs[k] for k in keys], device="cpu")
     return js, ts
@@ -143,7 +145,7 @@ def test_joint_torques_all_modes(models, nominal, mode):
     arrs, js, ts = nominal
     jp = je.SimParams(control_mode=mode)
     tp = te.SimParams(control_mode=mode)
-    tau_j, dex_j = jax.jit(lambda s, a: je.compute_joint_torques(
+    tau_j, dex_j = jit(lambda s, a: je.compute_joint_torques(
         jm, jp, s, a, H))(js, jnp.asarray(arrs["act"]))
     tau_t, dex_t = te.compute_joint_torques(tm, tp, ts,
                                             torch.as_tensor(arrs["act"]), H)
@@ -159,7 +161,7 @@ def test_joint_torques_at_limits(models, hard):
     act = np.zeros((N, 28), np.float32)
     jp = je.SimParams(hard_joint_limits=hard)
     tp = te.SimParams(hard_joint_limits=hard)
-    tau_j, dex_j = jax.jit(lambda s, a: je.compute_joint_torques(
+    tau_j, dex_j = jit(lambda s, a: je.compute_joint_torques(
         jm, jp, s, a, H))(js, jnp.asarray(act))
     tau_t, dex_t = te.compute_joint_torques(tm, tp, ts, torch.as_tensor(act), H)
     _close(tau_t, tau_j, 5e-3, 2e-4)
@@ -172,7 +174,7 @@ def test_contact_forces(models, nominal, terrains):
     _, js, ts = nominal
     jts, tts, tidx = terrains
     params = je.SimParams()
-    fj, nj = jax.jit(lambda s, t: je.compute_contact_forces(
+    fj, nj = jit(lambda s, t: je.compute_contact_forces(
         jm, params, jts, s, t))(js, jnp.asarray(tidx, jnp.int32))
     ft, nt = te.compute_contact_forces(tm, te.SimParams(), tts, ts,
                                        torch.as_tensor(tidx))
@@ -183,7 +185,7 @@ def test_contact_forces(models, nominal, terrains):
     j1 = jterrain.create_terrain(16, 16, dx=0.4, min_x=-3.2, min_y=-3.2)
     t1 = tterrain.create_terrain(16, 16, dx=0.4, min_x=-3.2, min_y=-3.2,
                                  device="cpu")
-    fj1, _ = jax.jit(lambda s: je.compute_contact_forces(
+    fj1, _ = jit(lambda s: je.compute_contact_forces(
         jm, params, j1, s))(js)
     ft1, _ = te.compute_contact_forces(tm, te.SimParams(), t1, ts)
     _close(ft1, fj1, 2e-4, 1e-5)
@@ -196,7 +198,7 @@ def test_aba(models, nominal):
     tau = rng.normal(size=(N, 28)).astype(np.float32)
     dex = rng.uniform(0, 0.1, (N, 28)).astype(np.float32)
     fext = rng.normal(size=(N, 15, 6)).astype(np.float32)
-    ra_j, q_j = jax.jit(lambda s, a, b, c: je.aba_level_parallel(
+    ra_j, q_j = jit(lambda s, a, b, c: je.aba_level_parallel(
         jm, je.SimParams(), s, a, b, c, H))(js, tau, dex, fext)
     ra_t, q_t = te.aba(tm, te.SimParams(), ts, torch.as_tensor(tau),
                        torch.as_tensor(dex), torch.as_tensor(fext))
@@ -204,14 +206,24 @@ def test_aba(models, nominal):
     _close(q_t, q_j, 1e-3, 1e-4)
 
 
-def test_control_step(models, standing, terrains):
+@pytest.fixture(scope="module")
+def jax_control_step(models, standing, terrains):
+    """The JAX control step from the standing state, compiled once for
+    the tests that hold the port's control step and its packed plain
+    version against it."""
+    jm, _ = models
+    arrs, js, _ = standing
+    jts, _, tidx = terrains
+    return jit(lambda s, a, t: je.control_step(
+        jm, je.SimParams(), jts, s, a, terrain_idx=t))(
+            js, jnp.asarray(arrs["act"]), jnp.asarray(tidx, jnp.int32))
+
+
+def test_control_step(models, standing, terrains, jax_control_step):
     jm, tm = models
     arrs, js, ts = standing
     jts, tts, tidx = terrains
-    params = je.SimParams()
-    want = jax.jit(lambda s, a, t: je.control_step(
-        jm, params, jts, s, a, terrain_idx=t))(
-            js, jnp.asarray(arrs["act"]), jnp.asarray(tidx, jnp.int32))
+    want = jax_control_step
     got = te.control_step(tm, te.SimParams(), tts, ts,
                           torch.as_tensor(arrs["act"]),
                           terrain_idx=torch.as_tensor(tidx))
@@ -230,7 +242,7 @@ def test_substep_reference_matches_sim_step(models, standing, terrains):
     arrs, js, ts = standing
     jts, tts, tidx = terrains
     jp = je.SimParams(dt=H, substeps=1)
-    want = jax.jit(lambda s, a, t: je.sim_step(
+    want = jit(lambda s, a, t: je.sim_step(
         jm, jp, jts, s, a, terrain_idx=t))(
             js, jnp.asarray(arrs["act"]), jnp.asarray(tidx, jnp.int32))
     tp = te.SimParams(dt=H, substeps=1)
@@ -252,15 +264,14 @@ def test_substep_reference_matches_sim_step(models, standing, terrains):
 
 
 def test_control_step_packed_reference_matches_jax(models, standing,
-                                                   terrains):
+                                                   terrains,
+                                                   jax_control_step):
     """A whole control step (2 sim steps x 2 substeps) of the kernel's
     plain version on packed arrays == the JAX control_step."""
     jm, tm = models
     arrs, js, ts = standing
     jts, tts, tidx = terrains
-    want = jax.jit(lambda s, a, t: je.control_step(
-        jm, je.SimParams(), jts, s, a, terrain_idx=t))(
-            js, jnp.asarray(arrs["act"]), jnp.asarray(tidx, jnp.int32))
+    want = jax_control_step
     ls, lc = tsub.state_layout(tm), tsub.const_layout(tm)
     act = torch.as_tensor(arrs["act"])
     out, contact = tsub.control_step_packed_reference(

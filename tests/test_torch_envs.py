@@ -17,7 +17,6 @@ import torch
 
 from parc_tpu.anim import char_model as jcm
 from parc_tpu.anim import motion_lib as jml
-from parc_tpu.data import synthetic as jsyn
 from parc_tpu.data.humanoid import humanoid_spec as jspec
 from parc_tpu.envs import base as jbase
 from parc_tpu.envs import deepmimic as jdm
@@ -27,11 +26,14 @@ from parc_tpu.utils import rotation as jrot
 from parc_torch import convert
 from parc_torch.anim import char_model as tcm
 from parc_torch.anim import motion_lib as tml
+from parc_torch.data import synthetic as tsyn
 from parc_torch.data.humanoid import humanoid_spec as tspec
 from parc_torch.envs import base as tbase
 from parc_torch.envs import deepmimic as tdm
 from parc_torch.envs import perception as tperc
 from parc_torch.physics import engine as te
+
+from test_torch_diffusion import jit
 
 torch.set_num_threads(1)
 
@@ -40,10 +42,16 @@ N = 8
 
 @pytest.fixture(scope="module")
 def stacks():
-    jm, tm = jspec().build(), tspec().build()
-    jlib = jml.build_motion_lib(jm, [jsyn.standing_clip(),
-                                     jsyn.walking_clip(seed=1)])
-    tlib = convert.motion_lib_from_numpy(jax.tree.map(np.asarray, jlib))
+    """Both envs over one motion library: the port's, held by the JAX one
+    as well (both packages' build_motion_lib agree,
+    tests/test_torch_motion_lib.py; no eager JAX build to compile)."""
+    jm, tm = jspec().build(), tspec().build(device="cpu")
+    tlib = tml.build_motion_lib(tm, [tsyn.standing_clip(),
+                                     tsyn.walking_clip(seed=1)],
+                                device="cpu")
+    jlib = jml.MotionLib(**{
+        k: jnp.asarray(v.numpy().astype(np.int32) if v.dtype == torch.int64
+                       else v.numpy()) for k, v in vars(tlib).items()})
     cfg = dict(num_envs=N)
     jenv = jdm.DeepMimicEnv(jm, je.SimParams(), jbase.EnvConfig(**cfg))
     tenv = tdm.DeepMimicEnv(tm, te.SimParams(), tbase.EnvConfig(**cfg),
@@ -60,7 +68,7 @@ def states(stacks):
     jenv, tenv, jlib, tlib = stacks
     ids = np.asarray([0, 1, 1, 0, 1, 0, 1, 1], np.int32)
     t0 = np.asarray([0.0, 0.5, 1.0, 2.9, 0.3, 1.2, 2.0, 0.7], np.float32)
-    js = jax.jit(lambda l, i, t: jenv.reset(l, jax.random.PRNGKey(0),
+    js = jit(lambda l, i, t: jenv.reset(l, jax.random.PRNGKey(0),
                                             motion_ids=i, start_times=t))(
         jlib, jnp.asarray(ids), jnp.asarray(t0))
     ts = tenv.reset(tlib, torch.Generator(), motion_ids=torch.as_tensor(ids),
@@ -131,7 +139,7 @@ def test_demo_reset_matches(states):
 def test_obs(stacks, states):
     jenv, tenv, jlib, tlib = stacks
     js, _, ts = states
-    want = jax.jit(jenv._compute_obs)(jlib, js)
+    want = jit(jenv._compute_obs)(jlib, js)
     got = tenv._compute_obs(tlib, ts)
     sl = tenv.obs_layout.slices()
     for name in tenv.obs_layout.names:
@@ -151,7 +159,7 @@ def test_reward_done_tracking(stacks, states):
         e = jenv._tracking_error(st, ref, bp, br)
         return r, c, d, e
 
-    r_j, c_j, d_j, e_j = jax.jit(jax_terms)(jlib, js)
+    r_j, c_j, d_j, e_j = jit(jax_terms)(jlib, js)
     ref = tml.calc_motion_frame(tlib, ts.motion_ids, ts.motion_times)
     bp, br = tcm.forward_kinematics(tenv.model, ref.root_pos, ref.root_rot,
                                     ref.joint_rot)
@@ -177,10 +185,13 @@ def test_contact_termination(stacks, states):
     jenv2 = jdm.DeepMimicEnv(jenv.model, je.SimParams(), jbase.EnvConfig(**kw))
     tenv2 = tdm.DeepMimicEnv(tenv.model, te.SimParams(), tbase.EnvConfig(**kw),
                              device="cpu")
-    ref_j = jml.calc_motion_frame(jlib, js.motion_ids, js.motion_times)
-    bp_j, _ = jcm.forward_kinematics(jenv.model, ref_j.root_pos,
-                                     ref_j.root_rot, ref_j.joint_rot)
-    d_j = jenv2._compute_done(jlib, js, ref_j, bp_j)
+
+    def jax_done(lib, st):
+        ref_j = jml.calc_motion_frame(lib, st.motion_ids, st.motion_times)
+        bp_j, _ = jcm.forward_kinematics(jenv.model, ref_j.root_pos,
+                                         ref_j.root_rot, ref_j.joint_rot)
+        return jenv2._compute_done(lib, st, ref_j, bp_j)
+    d_j = jit(jax_done)(jlib, js)
     ref = tml.calc_motion_frame(tlib, ts.motion_ids, ts.motion_times)
     bp, _ = tcm.forward_kinematics(tenv.model, ref.root_pos, ref.root_rot,
                                    ref.joint_rot)
@@ -195,14 +206,16 @@ def test_step_fail_rate_ema(stacks, states):
     pool entry."""
     jenv, tenv, jlib, tlib = stacks
     js, _, ts = states
-    jpool = jax.jit(lambda l, f: jenv.build_reset_pool(
-        l, jax.random.PRNGKey(3), f, N, k=2))(jlib, js.fail_rates)
-    tpool = convert.reset_pool_from_numpy(jax.tree.map(np.asarray, jpool))
     act = np.random.default_rng(2).normal(0, 0.3, (N, 28)).astype(np.float32)
     slot = np.asarray([0, 1, 0, 1, 0, 1, 0, 1], np.int32)
-    j2 = jax.jit(lambda l, s, a, p, k: jenv.step(
-        l, s, a, reset_pool=p, pool_slot=k))(jlib, js, jnp.asarray(act),
-                                             jpool, jnp.asarray(slot))
+
+    def pool_and_step(l, s, a, k):  # one compile for both
+        p = jenv.build_reset_pool(l, jax.random.PRNGKey(3), s.fail_rates, N,
+                                  k=2)
+        return p, jenv.step(l, s, a, reset_pool=p, pool_slot=k)
+    jpool, j2 = jit(pool_and_step)(jlib, js, jnp.asarray(act),
+                                   jnp.asarray(slot))
+    tpool = convert.reset_pool_from_numpy(jax.tree.map(np.asarray, jpool))
     t2 = tenv.step(tlib, ts, torch.as_tensor(act), reset_pool=tpool,
                    pool_slot=torch.as_tensor(slot))
     np.testing.assert_array_equal(t2.done.numpy(), np.asarray(j2.done))

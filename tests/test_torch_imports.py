@@ -1,10 +1,12 @@
 """The port stands alone: no module of parc_torch, and not chip_smoke.py,
 imports JAX, flax, optax, orbax or anything of parc_tpu (found by an AST
 scan of every import statement, including ones inside functions), and a
-fresh interpreter that imports every MDM and kin-gen module and the
-data-parallel module, trains an MDM a step, samples from it, runs a tiny
-kin-gen with it and loads the quadruped from its MJCF export has none of
-them loaded."""
+fresh interpreter that imports every MDM and kin-gen module, the
+data-parallel module and the tools and retargeting modules, trains an MDM
+a step, samples from it, runs a tiny kin-gen with it, loads the quadruped
+from its MJCF export and exports a BVH has none of them loaded. The entry
+points that build a character or run a tool default to the card: without
+CUDA they raise and name ``device='cpu'``."""
 
 import ast
 import pathlib
@@ -51,7 +53,11 @@ def test_files_found():
                    "anim/motion_edit.py", "anim/motion_data.py",
                    "pipeline/kin_gen.py", "pipeline/augment.py",
                    "parallel/__init__.py", "parallel/mesh.py",
-                   "data/quadruped.py", "anim/char_model.py"):
+                   "data/quadruped.py", "anim/char_model.py",
+                   "tools/metrics.py", "tools/convert.py",
+                   "tools/fidelity.py", "tools/validation.py",
+                   "retarget/keypoint_ik.py", "retarget/urdf.py",
+                   "utils/geom.py"):
         assert (ROOT / "parc_torch" / module) in FILES, module
 
 
@@ -103,7 +109,13 @@ def test_no_forbidden_module_after_an_mdm_runs():
         path = os.path.join(tempfile.mkdtemp(), "quadruped.xml")
         with open(path, "w") as f:
             f.write(char_model.export_mjcf(quadruped_spec()))
-        assert char_model.load_char_file(path).dof_size == 12
+        assert char_model.load_char_file(path, device="cpu").dof_size == 12
+        import parc_torch.tools.fidelity, parc_torch.tools.validation
+        import parc_torch.retarget.urdf
+        from parc_torch.tools import convert
+        from parc_torch.data.synthetic import walking_clip
+        convert.motion_to_bvh(model, walking_clip(n=5),
+                              os.path.join(tempfile.mkdtemp(), "w.bvh"))
         print(sorted({m.split(".")[0] for m in sys.modules}))
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
@@ -112,3 +124,34 @@ def test_no_forbidden_module_after_an_mdm_runs():
     loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
     assert "parc_torch" in loaded
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Without CUDA, building a character, loading one, running the
+    fidelity sweeps or retargeting with the default device raises and
+    says how to run on the CPU."""
+    import numpy as np
+    import torch
+
+    from parc_torch.anim import char_model
+    from parc_torch.data.humanoid import humanoid_spec
+    from parc_torch.retarget import keypoint_ik, urdf
+    from parc_torch.tools import fidelity
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the defaults run")
+    path = tmp_path / "h.xml"
+    path.write_text(char_model.export_mjcf(humanoid_spec()))
+    model = humanoid_spec().build(device="cpu")
+    robot = urdf.parse_urdf("""<robot name="r"><link name="a"/><link
+        name="b"/><joint name="j" type="revolute"><parent link="a"/><child
+        link="b"/></joint></robot>""")
+    for call in (lambda: humanoid_spec().build(),
+                 lambda: char_model.build_char_model(humanoid_spec()),
+                 lambda: char_model.load_char_file(str(path)),
+                 lambda: fidelity.run_sweeps(include_reference=False),
+                 lambda: keypoint_ik.retarget_keypoints(
+                     model, np.zeros((3, 24, 3), np.float32)),
+                 lambda: urdf.retarget_keypoints_to_robot(
+                     robot, np.zeros((3, 24, 3), np.float32))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

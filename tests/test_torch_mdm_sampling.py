@@ -32,7 +32,14 @@ from parc_torch.utils import terrain as tter
 from test_torch_diffusion import _close, _t, jit
 from test_torch_mdm import B, base_setup
 
+from test_torch_diffusion import jax_jit_opt0  # noqa: F401
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _opt0(jax_jit_opt0):
+    """The JAX package's own jax.jit calls compile at level 0."""
 
 
 @pytest.fixture(scope="module")

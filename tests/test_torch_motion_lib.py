@@ -28,6 +28,8 @@ from parc_torch.anim import motion_lib as tml
 from parc_torch.data import synthetic as tsyn
 from parc_torch.data.humanoid import humanoid_spec as tspec
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 VEL_FIELDS = ("frame_root_ang_vel", "frame_dof_vel", "frame_root_vel")
@@ -42,7 +44,7 @@ def _clips(pkg_syn, pkg_md):
 
 @pytest.fixture(scope="module")
 def libs():
-    jm, tm = jspec().build(), tspec().build()
+    jm, tm = jspec().build(), tspec().build(device="cpu")
     jlib = jml.build_motion_lib(jm, _clips(jsyn, jmd))
     tlib = tml.build_motion_lib(tm, _clips(tsyn, tmd), device="cpu")
     return jm, tm, jlib, tlib
@@ -96,7 +98,7 @@ def test_calc_motion_frame(libs, query):
     jm, tm, jlib, _ = libs
     lib = convert.motion_lib_from_numpy(jax.tree.map(np.asarray, jlib))
     ids, times = query
-    want = jax.jit(lambda i, t: jml.calc_motion_frame(jlib, i, t))(
+    want = jit(lambda i, t: jml.calc_motion_frame(jlib, i, t))(
         jnp.asarray(ids, jnp.int32), jnp.asarray(times))
     got = tml.calc_motion_frame(lib, torch.as_tensor(ids), torch.as_tensor(times))
     for f in tml.MotionFrame.__dataclass_fields__:
@@ -107,7 +109,7 @@ def test_calc_motion_frame(libs, query):
     # multi-step (N, S) queries as the target-frame observation makes them
     ids2 = np.repeat(ids[:, None], 3, 1)
     times2 = times[:, None] + np.asarray([0.0, 1.0, 2.5], np.float32)
-    want2 = jax.jit(lambda i, t: jml.calc_motion_frame(jlib, i, t))(
+    want2 = jit(lambda i, t: jml.calc_motion_frame(jlib, i, t))(
         jnp.asarray(ids2, jnp.int32), jnp.asarray(times2))
     got2 = tml.calc_motion_frame(lib, torch.as_tensor(ids2),
                                  torch.as_tensor(times2))

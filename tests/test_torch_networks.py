@@ -29,6 +29,8 @@ from parc_torch.learning import ppo as tppo
 from parc_torch.learning.networks import ActorCritic, build_net
 from parc_torch.physics import engine as te
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 OBS_DIM, ACT_DIM, NET = 1312, 28, "fc_2layers_512units"
@@ -53,7 +55,7 @@ def obs():
 @pytest.mark.parametrize("std_type", ["FIXED", "CONSTANT", "VARIABLE"])
 def test_actor_critic_from_flax(std_type, obs):
     jnet, params = _flax_params(std_type)
-    mean_j, logstd_j, value_j = jax.jit(jnet.apply)(params, obs)
+    mean_j, logstd_j, value_j = jit(jnet.apply)(params, obs)
     net = convert.actor_critic_from_flax(params, actor_std_type=std_type)
     with torch.no_grad():
         mean_t, logstd_t, value_t = net(torch.as_tensor(obs))
@@ -90,7 +92,7 @@ def test_normalizer(obs):
     rng = np.random.default_rng(2)
     for _ in range(3):
         batch = rng.normal(3.0, 2.0, (5, 16, OBS_DIM)).astype(np.float32)
-        js = jax.jit(jnorm.update)(js, batch)
+        js = jit(jnorm.update)(js, batch)
         ts = tnorm.update(ts, torch.as_tensor(batch))
     for f in ("mean", "var", "count"):
         np.testing.assert_allclose(getattr(ts, f).numpy(),
@@ -110,7 +112,7 @@ def test_agent_act(obs):
     cfg_j = jppo.PPOConfig(actor_net=NET, critic_net=NET)
     jenv = JEnv(jspec().build(), je.SimParams(), JEnvConfig(num_envs=16))
     jagent = jppo.PPOAgent(jenv, cfg_j)
-    tenv = TEnv(tspec().build(), te.SimParams(), TEnvConfig(num_envs=16),
+    tenv = TEnv(tspec().build(device="cpu"), te.SimParams(), TEnvConfig(num_envs=16),
                 device="cpu")
     cfg_t = tppo.PPOConfig(actor_net=NET, critic_net=NET)
     tagent = tppo.PPOAgent(tenv, cfg_t, device="cpu")

@@ -1,15 +1,22 @@
-"""parc_torch.parallel (data parallelism over torch.distributed) against the
-JAX package's shard_map path (parc_tpu/parallel/mesh.py), on the CPU: two
-gloo ranks, each a process started the way tests/test_distributed.py starts
-its children, against ``make_mesh(2)`` over two of the test session's
-virtual CPU devices.
+"""parc_torch.parallel (data parallelism over torch.distributed) on the
+CPU: two gloo ranks, each a process started the way
+tests/test_distributed.py starts its children, against the port's own
+one-process path on the whole batch (data parallelism splits the batch
+and reduces over it, so the two agree up to rounding). That path is held
+against the JAX package at the same tolerances by the tests named below,
+so nothing here compiles the JAX package's shard_map path:
+- train_iter's metrics and state: tests/test_torch_ppo.py
+  (test_train_iter_metrics, test_train_iter_state), the same setup;
+- the test rollout: tests/test_torch_trainer.py::test_make_test_fn;
+- the normalizer update: tests/test_torch_networks.py::test_normalizer;
+- the deterministic rollout's steps: tests/test_torch_slice.py.
 
 The setup is tests/test_torch_ppo.py's deterministic one: one standing
 clip, 8 envs in all (4 a rank), no random reset and no action noise, one
 minibatch a PPO epoch (so the permutation does not matter), a normalizer
 that has seen 256 spread samples, the elbows' bias past the action bound;
 episodes end after 0.1 s, so envs finish and reset from the pool. Both
-stacks start from the same persistent state and the same env state, rank r
+runs start from the same persistent state and the same env state, rank r
 taking its block of it.
 
 Tolerances (tests/test_torch_ppo.py's and tests/test_torch_trainer.py's):
@@ -22,36 +29,36 @@ parameters are bit-identical.
 """
 
 import os
+import signal
 import socket
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from jax import shard_map
-from jax.sharding import PartitionSpec as P
 
-from parc_tpu.anim import motion_lib as jml
 from parc_tpu.data.humanoid import humanoid_spec as jspec
 from parc_tpu.envs import base as jbase
 from parc_tpu.envs import deepmimic as jdm
 from parc_tpu.learning import normalizer as jnorm
 from parc_tpu.learning import ppo as jppo
-from parc_tpu.parallel import mesh as jmesh
 from parc_tpu.physics import engine as je
-from parc_tpu.pipeline import train_tracker as jtt
 from parc_torch import convert
 from parc_torch.anim import motion_lib as tml
 from parc_torch.data import synthetic as tsyn
 from parc_torch.data.humanoid import humanoid_spec as tspec
 from parc_torch.envs import base as tbase
 from parc_torch.envs import deepmimic as tdm
+from parc_torch.learning import normalizer as tnorm
 from parc_torch.learning import ppo as tppo
+from parc_torch.parallel import mesh as tmesh
 from parc_torch.physics import engine as te
+from parc_torch.pipeline import train_tracker as ttt
 
 torch.set_num_threads(1)
 
@@ -80,9 +87,10 @@ CHILD = textwrap.dedent("""
     from parc_torch.pipeline import train_tracker
 
     inp = torch.load(sys.argv[1], weights_only=False)
-    info = mesh.init_distributed(backend="gloo", device="cpu")
+    info = mesh.init_distributed(backend="gloo", device="cpu",
+                                 timeout_s=inp["timeout_s"])
     group, rank, world = mesh.default_group(), info.rank, info.world_size
-    env = DeepMimicEnv(humanoid_spec().build(), engine.SimParams(),
+    env = DeepMimicEnv(humanoid_spec().build(device="cpu"), engine.SimParams(),
                        EnvConfig(**inp["env_kw"]), device="cpu")
     agent = ppo.PPOAgent(env, ppo.PPOConfig(**inp["ppo_kw"]), device="cpu")
     lib = ml.build_motion_lib(env.model, [standing_clip()], device="cpu")
@@ -124,28 +132,74 @@ CHILD = textwrap.dedent("""
 """)
 
 
+# a gloo rank waits this long for the group and for each collective; the
+# ranks of these tests reach every collective within seconds of each other
+RANK_TIMEOUT_S = 60
+# what a rank prints when the group never formed (a port another group
+# took between free_port and the bind, or a rank that died early)
+RENDEZVOUS_ERRORS = ("address already in use", "eaddrinuse",
+                     "connection refused", "timed out", "timeout",
+                     "rendezvous")
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def run_ranks(script: str, args, world: int = W, timeout: float = 300):
+def run_group(cmds, envs, timeout: float):
+    """Run the processes ``cmds`` (each in a process group of its own) to
+    their end; on a timeout or a failure kill every one of them, with its
+    children, before returning. Returns [(returncode, output)]."""
+    procs = [subprocess.Popen(c, env=e, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True)
+             for c, e in zip(cmds, envs)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            left = max(deadline - time.monotonic(), 0.1)
+            try:
+                outs.append(p.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                outs.append(f"(killed after {timeout:.0f} s)")
+                break
+            if p.returncode != 0:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    outs += [p.communicate()[0] or "" for p in procs[len(outs):]]
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
+def _rendezvous_failed(results) -> bool:
+    return any(rc != 0 and any(e in o.lower() for e in RENDEZVOUS_ERRORS)
+               for rc, o in results)
+
+
+def run_ranks(script: str, args, world: int = W, timeout: float = 120):
     """Run ``script`` as ``world`` gloo ranks (RANK, WORLD_SIZE,
-    LOCAL_RANK, MASTER_ADDR, MASTER_PORT set as torchrun sets them)."""
-    port = free_port()
-    procs = []
-    for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                   PYTHONPATH=REPO)
-        procs.append(subprocess.Popen(
-            [sys.executable, script, *map(str, args)], env=env, cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{o}"
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT set as torchrun sets them); every
+    rank is killed on a timeout or when one fails, and a group that never
+    formed is tried once more on a fresh port."""
+    for attempt in range(2):
+        port = free_port()
+        envs = [dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                     LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                     PYTHONPATH=REPO) for r in range(world)]
+        results = run_group([[sys.executable, str(script), *map(str, args)]]
+                            * world, envs, timeout)
+        if attempt == 0 and _rendezvous_failed(results):
+            continue
+        for r, (rc, o) in enumerate(results):
+            assert rc == 0, f"rank {r} failed:\n{o}"
+        return
 
 
 def _np(tree):
@@ -174,18 +228,18 @@ def _scaled_close(got, want, tol, msg):
 
 @pytest.fixture(scope="module")
 def dp(tmp_path_factory):
-    """Both stacks through the same data-parallel pieces: JAX under
-    shard_map on 2 devices, the port on 2 gloo ranks."""
+    """The port on 2 gloo ranks and in one process on the whole batch,
+    from one start (the JAX package's initial parameters and normalizer,
+    as tests/test_torch_ppo.py starts)."""
     tmp = tmp_path_factory.mktemp("dp")
     jenv = jdm.DeepMimicEnv(jspec().build(), je.SimParams(),
                             jbase.EnvConfig(**ENV_KW))
     jagent = jppo.PPOAgent(jenv, jppo.PPOConfig(**PPO_KW))
-    tenv = tdm.DeepMimicEnv(tspec().build(), te.SimParams(),
+    tenv = tdm.DeepMimicEnv(tspec().build(device="cpu"), te.SimParams(),
                             tbase.EnvConfig(**ENV_KW), device="cpu")
     tagent = tppo.PPOAgent(tenv, tppo.PPOConfig(**PPO_KW), device="cpu")
     tlib = tml.build_motion_lib(tenv.model, [tsyn.standing_clip()],
                                 device="cpu")
-    jlib = jml.MotionLib(**{k: _jnp(v) for k, v in vars(tlib).items()})
     tstate = tagent.init(tlib, torch.Generator().manual_seed(0))
 
     obs_dim = jenv.obs_dim
@@ -202,60 +256,46 @@ def dp(tmp_path_factory):
         obs_norm=jnorm.update(jnorm.create(obs_dim, mask), spread),
         env_state=_jax_env_state(tstate.env_state),
         rng=jax.random.PRNGKey(0), sample_count=jnp.zeros(()))
-    start = _np(jppo.persistent_state(jstate))
+    start = convert.persistent_from_numpy(
+        _np(jppo.persistent_state(jstate)))
     norm_batch = (obs0 + rng.normal(size=(W, 16, obs_dim))).astype(
         np.float32)
 
     inp = tmp / "in.pt"
-    torch.save(dict(env_kw=ENV_KW, ppo_kw=PPO_KW,
-                    start=convert.persistent_from_numpy(start),
+    torch.save(dict(env_kw=ENV_KW, ppo_kw=PPO_KW, start=start,
                     env_state=tstate.env_state,
                     norm_batch=torch.as_tensor(norm_batch),
                     test_steps=TEST_STEPS, test_episodes=TEST_EPISODES,
-                    roll_steps=ROLL_STEPS), inp)
+                    roll_steps=ROLL_STEPS, timeout_s=RANK_TIMEOUT_S), inp)
     script = tmp / "rank.py"
     script.write_text(CHILD)
     run_ranks(script, [inp, tmp])
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
              for r in range(W)]
 
-    mesh = jmesh.make_mesh(W)
-    state_spec = jmesh.agent_state_pspec(jstate, N)
-    lib_spec = jax.tree.map(lambda _: P(), jlib)
-    test_core = jtt.make_test_fn(jmesh.local_agent(jagent, W), TEST_STEPS,
-                                 TEST_EPISODES, axis_name="data",
-                                 n_shards=W)
-    want_test = _np(jax.jit(shard_map(
-        test_core, mesh=mesh, in_specs=(lib_spec, state_spec, P()),
-        out_specs=P(), check_vma=False))(jlib, jstate,
-                                         jax.random.PRNGKey(0)))
-    roll = jmesh.make_sharded_rollout(jenv, jagent.net, jagent.a_mid,
-                                      jagent.a_scale, mesh, jlib,
-                                      jstate.env_state, ROLL_STEPS)
-    want_reward = float(roll(jlib, jstate.env_state, jstate.params,
-                             jstate.obs_norm)[1])
-    want_norm = _np(jax.jit(shard_map(
-        lambda b: jnorm.update(jstate.obs_norm, b, axis_name="data"),
-        mesh=mesh, in_specs=(P("data"),), out_specs=P(),
-        check_vma=False))(norm_batch.reshape(W * 16, obs_dim)))
-
-    train = jmesh.make_sharded_train_iter(jagent, mesh, jlib, jstate)
-    jmetrics = []
+    # the one process on all N envs, as each rank runs its block
+    one = tppo.merge_persistent(tagent, tstate, start)
+    gen = torch.Generator().manual_seed(0)
+    test = ttt.make_test_fn(tagent, TEST_STEPS, TEST_EPISODES)(tlib, one,
+                                                                 gen)
+    reward = tmesh.make_sharded_rollout(tagent, None, ROLL_STEPS)(
+        tlib, one.env_state, one.obs_norm, gen)[1]
+    norm = tnorm.update(one.obs_norm, torch.as_tensor(
+        norm_batch.reshape(W * 16, obs_dim)))
+    metrics = []
     for _ in range(2):
-        jstate, m = train(jlib, jstate)
-        jmetrics.append(_np(m))
-    return dict(ranks=ranks, start=convert.persistent_from_numpy(start),
-                jend=convert.persistent_from_numpy(
-                    _np(jppo.persistent_state(jstate))),
-                jmetrics=jmetrics, want_test=want_test,
-                want_reward=want_reward, want_norm=want_norm)
+        one, m = tagent.train_iter(tlib, one)
+        metrics.append(m)
+    return dict(ranks=ranks, start=start,
+                end=tppo.persistent_state(tagent, one), metrics=metrics,
+                test=test, reward=float(reward), norm=norm)
 
 
 @pytest.mark.parametrize("it", [0, 1])
 def test_train_iter_metrics(dp, it):
     """The metrics (averaged over ranks, dones and fails summed) of both
-    iterations, on both ranks."""
-    jm = dp["jmetrics"][it]
+    iterations, on both ranks, against the one process's."""
+    jm = dp["metrics"][it]
     for r in dp["ranks"]:
         assert r["envs"] == N // W
         tm = r["metrics"][it]
@@ -265,8 +305,9 @@ def test_train_iter_metrics(dp, it):
 
 def test_train_iter_state(dp):
     """Normalizer, sample count (2 x T x 8, summed over ranks), fail rates
-    (averaged over ranks), parameters and momentum after two iterations."""
-    start, jend = dp["start"], dp["jend"]
+    (averaged over ranks), parameters and momentum after two iterations,
+    against the one process's."""
+    start, jend = dp["start"], dp["end"]
     tend = dp["ranks"][0]["end"]
     for f in ("mean", "var", "count"):
         np.testing.assert_allclose(tend["obs_norm"][f].numpy(),
@@ -306,12 +347,13 @@ def test_ranks_bit_identical(dp):
 
 
 def test_normalizer_update_reduced(dp):
-    """normalizer.update over a batch split across the ranks against
-    ``psum`` under shard_map."""
+    """normalizer.update over a batch split across the ranks against the
+    update on the whole batch."""
     for r in dp["ranks"]:
         for f in ("mean", "var", "count"):
             np.testing.assert_allclose(r["norm"][f].numpy(),
-                                       getattr(dp["want_norm"], f), rtol=1e-5,
+                                       getattr(dp["norm"], f).numpy(),
+                                       rtol=1e-5,
                                        atol=1e-5, err_msg=f)
 
 
@@ -324,10 +366,10 @@ def test_check_param_sync(dp):
 
 
 def test_test_rollout_reduced(dp):
-    """The test rollout over both ranks' envs against
-    ``make_test_fn(axis_name="data")`` under shard_map: episodes finish
-    and reset inline; the stop test and the statistics are reduced."""
-    want = dp["want_test"]
+    """The test rollout over both ranks' envs against the one process's
+    over all envs: episodes finish and reset inline; the stop test and the
+    statistics are reduced."""
+    want = dp["test"]
     for r in dp["ranks"]:
         got = r["test"]
         assert set(got) == set(want)
@@ -341,7 +383,7 @@ def test_test_rollout_reduced(dp):
 
 def test_sharded_rollout_reward(dp):
     """The deterministic rollout's mean reward, averaged over the ranks,
-    against ``make_sharded_rollout``."""
+    against the one process's over all envs."""
     for r in dp["ranks"]:
         np.testing.assert_allclose(float(r["rollout_reward"]),
-                                   dp["want_reward"], rtol=1e-4, atol=1e-6)
+                                   dp["reward"], rtol=1e-4, atol=1e-6)

@@ -17,7 +17,6 @@ to the bit (parameters, fail rates) and replan on the same steps.
 
 import dataclasses
 import os
-import subprocess
 import sys
 import textwrap
 
@@ -52,7 +51,8 @@ from parc_torch.learning import ppo as tppo
 from parc_torch.pipeline import cli
 from parc_torch.pipeline import train_tracker as ttrain
 from parc_torch.utils import checkpoint as ckpt
-from test_torch_parallel import REPO, free_port, run_ranks
+from test_torch_parallel import (RANK_TIMEOUT_S, REPO, _rendezvous_failed,
+                                 free_port, run_group, run_ranks)
 
 torch.set_num_threads(1)
 
@@ -70,7 +70,8 @@ STEP_CHILD = textwrap.dedent("""
     from parc_torch.parallel import mesh
 
     inp = torch.load(sys.argv[1], weights_only=False)
-    info = mesh.init_distributed(backend="gloo", device="cpu")
+    info = mesh.init_distributed(backend="gloo", device="cpu",
+                                 timeout_s=inp["timeout_s"])
     rank, world = info.rank, info.world_size
     env, bundle, d = inp["env"], inp["bundle"], inp["draws"]
     local = env.local_shard(world)
@@ -132,6 +133,11 @@ CLI_CHILD = textwrap.dedent("""
     ckpt_lib.save, train_tracker.Logger = spy_save, SpyLogger
     ParkourEnv.step, ParkourEnv._replan = spy_step, spy_replan
     ppo.PPOAgent.train_iter = spy_iter
+    # the group's timeout, short in tests
+    import functools
+    from parc_torch.parallel import mesh
+    mesh.init_distributed = functools.partial(
+        mesh.init_distributed, timeout_s=float(os.environ["RANK_TIMEOUT_S"]))
     state = cli.main(sys.argv[2:])
     agent = rec.pop("agent")
     rec.update(end=ppo.persistent_state(agent, state),
@@ -153,7 +159,7 @@ def _jax_env(num_envs, mgdm_num):
 def parkour():
     """The port's parkour env (8 envs, 4 mgdm rows, a tiny fresh MDM), its
     bundle and a reset state."""
-    model = tspec().build()
+    model = tspec().build(device="cpu")
     lib = tml.build_motion_lib(
         model, [tsyn.standing_clip(), tsyn.walking_clip(seed=1)],
         device="cpu")
@@ -175,7 +181,7 @@ def parkour():
 def test_shard_row_permutation_and_local_shard(num_envs, mgdm_num, world):
     """The permutation to shard-major rows and the per-rank env's split
     equal the JAX package's; a split that does not divide raises."""
-    mdm = TMDM(tspec().build(), TCfg(**MDM_SMALL), device="cpu")
+    mdm = TMDM(tspec().build(device="cpu"), TCfg(**MDM_SMALL), device="cpu")
     terrain = tmgdm.make_platform_terrain(np.random.default_rng(0), dim=20,
                                           device="cpu")
     env = tpk.ParkourEnv(mdm.model, te.SimParams(),
@@ -269,7 +275,7 @@ def two_rank_steps(parkour, tmp_path_factory):
     states = {"parked": dataclasses.replace(es, replan_timer=1000),
               "replan": dataclasses.replace(es, replan_timer=1)}
     torch.save(dict(env=env, bundle=bundle, states=states, act=act,
-                    draws=draws), tmp / "in.pt")
+                    draws=draws, timeout_s=RANK_TIMEOUT_S), tmp / "in.pt")
     (tmp / "rank.py").write_text(STEP_CHILD)
     run_ranks(tmp / "rank.py", [tmp / "in.pt", tmp])
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
@@ -336,14 +342,20 @@ def test_cli_train_tracker_torchrun(tmp_path):
     (tmp_path / "rank.py").write_text(CLI_CHILD)
     base = ["train_tracker", "--dataset", ds, "--out_dir", str(out),
             "--config", str(config), "--device", "cpu"]
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-         "2", "--master_addr", "127.0.0.1", "--master_port",
-         str(free_port()), str(tmp_path / "rank.py"), str(tmp_path)] + base
-        + ["--num_envs", "4", "--max_iters", "2", "--dist_backend", "gloo"],
-        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
-        capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               RANK_TIMEOUT_S=str(RANK_TIMEOUT_S))
+    for attempt in range(2):
+        cmd = ([sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+                "--master_port", str(free_port()),
+                str(tmp_path / "rank.py"), str(tmp_path)] + base
+               + ["--num_envs", "4", "--max_iters", "2", "--dist_backend",
+                  "gloo"])
+        result = run_group([cmd], [env], timeout=180)
+        if not (attempt == 0 and _rendezvous_failed(result)):
+            break
+    (rc, log), = result
+    assert rc == 0, log[-8000:]
     r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
               for r in range(2))
     assert (r0["envs"], r0["mgdm"]) == (r1["envs"], r1["mgdm"]) == (2, 1)

@@ -55,7 +55,14 @@ from parc_torch.envs import parkour as tpk
 from parc_torch.physics import engine as te
 from test_torch_diffusion import _close, _np, _t, jit
 
+from test_torch_diffusion import jax_jit_opt0  # noqa: F401
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _opt0(jax_jit_opt0):
+    """The JAX package's own jax.jit calls compile at level 0."""
 
 N, NM = 6, 2
 MDM_CFG = dict(diffusion_timesteps=11, d_model=32, num_heads=2, d_hid=32,
@@ -88,7 +95,7 @@ def _mdms(jm, tm, tlib):
 
 @pytest.fixture(scope="module")
 def stacks():
-    jm, tm = jspec().build(), tspec().build()
+    jm, tm = jspec().build(), tspec().build(device="cpu")
     jlib = jml.build_motion_lib(jm, [jsyn.standing_clip(),
                                      jsyn.walking_clip(seed=1)])
     tlib = convert.motion_lib_from_numpy(_np(jlib))
@@ -157,7 +164,7 @@ def test_append_terrain_slot(stacks):
 
 
 def test_buffer_frame():
-    jm, tm = jspec().build(), tspec().build()
+    jm, tm = jspec().build(), tspec().build(device="cpu")
     rng = np.random.default_rng(0)
     clip = jsyn.walking_clip(seed=3)
     frames = np.stack([clip.frames[i:i + 15] for i in (0, 7, 20)])

@@ -41,7 +41,7 @@ SMALL = dict(actor_net=NET, critic_net=NET)
 
 def _train(out_dir, num_envs, max_iters):
     cfg = tbase.EnvConfig(num_envs=num_envs)
-    env = tdm.DeepMimicEnv(tspec().build(), te.SimParams(), cfg,
+    env = tdm.DeepMimicEnv(tspec().build(device="cpu"), te.SimParams(), cfg,
                            device="cpu")
     agent = tppo.PPOAgent(env, tppo.PPOConfig(steps_per_iter=2, **SMALL),
                           device="cpu")
@@ -62,7 +62,7 @@ def test_checkpoint_round_trip(tmp_path):
     saved = tppo.persistent_state(agent, state)
     assert float(saved["sample_count"]) == 2 * 4
 
-    env2 = tdm.DeepMimicEnv(tspec().build(), te.SimParams(),
+    env2 = tdm.DeepMimicEnv(tspec().build(device="cpu"), te.SimParams(),
                             tbase.EnvConfig(num_envs=2), device="cpu")
     agent2 = tppo.PPOAgent(env2, agent.cfg, device="cpu")
     fresh = agent2.init(lib, torch.Generator().manual_seed(3))
@@ -192,7 +192,7 @@ def test_dataset(tmp_path):
 
     assert tds.dataset_meta(got)["names"] == jds.dataset_meta(want)["names"]
     assert tds.dataset_meta(got)["classes"] == jds.dataset_meta(want)["classes"]
-    tlib = tds.load_dataset(tspec().build(), got, device="cpu")
+    tlib = tds.load_dataset(tspec().build(device="cpu"), got, device="cpu")
     jlib = jds.load_dataset(jspec().build(), want)
     for f in ("weights", "lengths", "terrain_hf", "terrain_maxmin",
               "frame_root_pos", "frame_contacts"):
@@ -204,7 +204,7 @@ def test_dataset(tmp_path):
 def test_ensure_terrains():
     clip = tsyn.walking_clip(seed=1)
     clip.terrain = None
-    tds.ensure_terrains(tspec().build(), [clip])
+    tds.ensure_terrains(tspec().build(device="cpu"), [clip])
     jclip = jsyn.walking_clip(seed=1)
     jclip.terrain = None
     jds.ensure_terrains(jspec().build(), [jclip])

@@ -45,6 +45,8 @@ from parc_torch.learning import ppo as tppo
 from parc_torch.learning import rl_util as trl
 from parc_torch.physics import engine as te
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 NET, N, T, ACT = "fc_2layers_512units", 8, 4, 28
@@ -180,7 +182,7 @@ def test_td_lambda():
 
 def _agents(env_cfg, ppo_cfg):
     jenv = jdm.DeepMimicEnv(jspec().build(), je.SimParams(), env_cfg[0])
-    tenv = tdm.DeepMimicEnv(tspec().build(), te.SimParams(), env_cfg[1],
+    tenv = tdm.DeepMimicEnv(tspec().build(device="cpu"), te.SimParams(), env_cfg[1],
                             device="cpu")
     return (jppo.PPOAgent(jenv, jppo.PPOConfig(**ppo_cfg)),
             tppo.PPOAgent(tenv, tppo.PPOConfig(**ppo_cfg), device="cpu"))
@@ -207,8 +209,8 @@ def loss_setup():
                  adv=f(b), tar_val=f(b),
                  rand_mask=(rng.uniform(size=b) < 0.6).astype(np.float32))
     tagent.net.load_state_dict(convert.flax_state_dict(_np(params)))
-    grad_fn = jax.jit(jax.grad(jagent._loss, has_aux=True))
-    loss_fn = jax.jit(jagent._loss)
+    grad_fn = jit(jax.grad(jagent._loss, has_aux=True))
+    loss_fn = jit(jagent._loss)
     return jagent, tagent, params, batch, grad_fn, loss_fn
 
 
@@ -282,7 +284,7 @@ def trained():
     tstate = tagent.init(tlib, torch.Generator().manual_seed(0))
 
     obs_dim = jagent.env.obs_dim
-    params = jax.tree.map(np.array, jax.jit(jagent.net.init)(
+    params = jax.tree.map(np.array, jit(jagent.net.init)(
         jax.random.PRNGKey(0), jnp.zeros((1, obs_dim))))
     params["params"]["actor_head"]["bias"][[9, 13]] = [1.1, -1.1]
     rng = np.random.default_rng(5)
@@ -298,7 +300,7 @@ def trained():
     start = _np(jppo.persistent_state(jstate))
     tstate = convert.agent_state_from_numpy(tagent, tstate, start)
 
-    train_j = jax.jit(lambda s: jagent.train_iter(jlib, s))
+    train_j = jit(lambda s: jagent.train_iter(jlib, s))
     jmetrics, tmetrics = [], []
     for _ in range(2):
         jstate, m = train_j(jstate)

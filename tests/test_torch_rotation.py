@@ -17,6 +17,8 @@ import torch
 from parc_tpu.utils import rotation as jrot
 from parc_torch.utils import rotation as trot
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 N = 64
@@ -107,7 +109,7 @@ def test_every_function_is_covered():
 def test_matches_jax(name, inputs):
     keys, extra, atol = CASES[name]
     args = [inputs[k] for k in keys]
-    want = jax.jit(lambda *a: getattr(jrot, name)(*a, *extra))(
+    want = jit(lambda *a: getattr(jrot, name)(*a, *extra))(
         *[jnp.asarray(a) for a in args])
     got = getattr(trot, name)(*[torch.as_tensor(a) for a in args], *extra)
     want = want if isinstance(want, tuple) else (want,)

@@ -33,6 +33,8 @@ from parc_torch.envs import deepmimic as tdm
 from parc_torch.learning import ppo as tppo
 from parc_torch.physics import engine as te
 
+from test_torch_diffusion import jit
+
 torch.set_num_threads(1)
 
 N, K, STEPS, NET = 8, 2, 3, "fc_2layers_512units"
@@ -54,14 +56,14 @@ def rollouts():
     jenv = jdm.DeepMimicEnv(jm, je.SimParams(), jbase.EnvConfig(num_envs=N))
     jagent = jppo.PPOAgent(jenv, jppo.PPOConfig(actor_net=NET,
                                                 critic_net=NET))
-    jstate = jax.jit(jagent.init)(jlib, jax.random.PRNGKey(0))
+    jstate = jit(jagent.init)(jlib, jax.random.PRNGKey(0))
     # a normalizer that has seen data, so normalization is not identity
     obs_norm = jnorm.update(jstate.obs_norm, jnp.concatenate(
         [jstate.env_state.obs, 0.5 * jstate.env_state.obs + 0.1]))
-    jpool = jax.jit(lambda l, f: jenv.build_reset_pool(
+    jpool = jit(lambda l, f: jenv.build_reset_pool(
         l, jax.random.PRNGKey(1), f, N, k=K))(jlib, jstate.env_state.fail_rates)
 
-    @jax.jit
+    @jit
     def jstep(lib, es, params, norm, pool, counts):
         mean, _ = jagent.net.apply(params, jnorm.normalize(norm, es.obs),
                                    method="actor")
@@ -70,7 +72,7 @@ def rollouts():
                        pool_slot=counts % K)
         return es, counts + (es.done != 0).astype(counts.dtype), action
 
-    tenv = tdm.DeepMimicEnv(tspec().build(), te.SimParams(),
+    tenv = tdm.DeepMimicEnv(tspec().build(device="cpu"), te.SimParams(),
                             tbase.EnvConfig(num_envs=N), device="cpu")
     tagent = tppo.PPOAgent(tenv, tppo.PPOConfig(actor_net=NET, critic_net=NET),
                            device="cpu")

@@ -118,7 +118,7 @@ def inputs():
     """N envs: motion-lib frames lowered 0-6 cm into a bumpy stacked
     terrain (each env on one of two), noisy dof velocities, every second
     env past its joint limits, PD targets near the pose."""
-    model = humanoid_spec().build()
+    model = humanoid_spec().build(device="cpu")
     lib = ml.build_motion_lib(model, [standing_clip(), walking_clip(seed=1)],
                               device="cpu")
     rng = np.random.default_rng(0)
@@ -251,7 +251,7 @@ def quad_inputs():
     """N quadrupeds near the standing pose (seeded noise on the joints,
     every second env's knees past their upper limit), their feet in the
     bumpy stacked terrain, noisy velocities, PD targets near the stand."""
-    model = quadruped_spec().build()
+    model = quadruped_spec().build(device="cpu")
     rng = np.random.default_rng(1)
     stand = torch.as_tensor(standing_pose_dof())
 

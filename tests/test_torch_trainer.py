@@ -10,6 +10,7 @@ tests/test_pallas.py:190-193) with contacts and successes equal.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from parc_tpu.anim import motion_lib as jml
@@ -31,6 +32,8 @@ from parc_torch.learning import ppo as tppo
 from parc_torch.physics import engine as te
 from parc_torch.pipeline import record as trec
 from parc_torch.pipeline import train_tracker as ttt
+
+from test_torch_diffusion import jax_jit_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -57,7 +60,7 @@ def _stacks(clips, env_kw, ppo_kw=SMALL):
     spread data) over the same clips, with their motion libraries and
     states."""
     jm = jspec().build()
-    tenv = tdm.DeepMimicEnv(tspec().build(), te.SimParams(),
+    tenv = tdm.DeepMimicEnv(tspec().build(device="cpu"), te.SimParams(),
                             tbase.EnvConfig(**env_kw), device="cpu")
     tlib = tml.build_motion_lib(tenv.model, clips, device="cpu")
     jlib = _jax_lib(tlib)
@@ -78,6 +81,11 @@ def _stacks(clips, env_kw, ppo_kw=SMALL):
     tstate = tppo.AgentState(obs_norm=convert.normalizer_from_numpy(
         _np(norm)), env_state=None, sample_count=torch.zeros(()))
     return jagent, jlib, jstate, tagent, tlib, tstate
+
+
+@pytest.fixture(autouse=True)
+def _opt0(jax_jit_opt0):
+    """The JAX test rollout and record loop compile at level 0."""
 
 
 def test_make_test_fn():

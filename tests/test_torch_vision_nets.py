@@ -39,7 +39,7 @@ B = 5
 @pytest.fixture(scope="module")
 def envs():
     jenv = JEnv(jspec().build(), je.SimParams(), jbase.EnvConfig(num_envs=4))
-    tenv = TEnv(tspec().build(), te.SimParams(), tbase.EnvConfig(num_envs=4),
+    tenv = TEnv(tspec().build(device="cpu"), te.SimParams(), tbase.EnvConfig(num_envs=4),
                 device="cpu")
     return jenv, tenv
 
