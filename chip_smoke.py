@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of parc_torch on one NVIDIA GPU: build the kernel, check it,
-drive the tracker rollout, training, the MDM, kin-gen and the parkour env
-at full width, and report.
+drive the tracker rollout, training, the MDM, kin-gen, the parkour env,
+the tools and the studio at full width, and report.
 
     python3 chip_smoke.py
 
@@ -168,6 +168,22 @@ Phases, each printing one line of facts:
    apart); the match search's frames equal; flat_maxpool_3x3,
    downsample_terrain, merge_hfs and hf_from_motion equal; the native
    mesher's mesh valid (indices in range, no degenerate triangle).
+12. the viewer and the studio, from phases 5, 7 and 8's outputs: (a) the
+   CLI's ``view --compare`` of an 8a clip against its 8c optimized copy on
+   the card, its page's DATA against the same stage on the CPU (body
+   positions within 1e-4 + 2e-6, the rest equal), and whether a PNG strip
+   was drawn (only where matplotlib is installed); (b) the studio
+   (``Studio(device="cuda")``) over HTTP on 127.0.0.1, port 0, with phase
+   7's MDM and phase 5's tracker: procgen boxes 32 x 32, A* corner to
+   corner, mdm_gen at its defaults (8 rollouts, 6 s), recompute_contacts,
+   optimize at 300 iterations, accept_overlay, track, sim_start, sim_step
+   64, sim_stop, flip, resample to 60 fps, slice, save and a stitch onto
+   the saved copy, then GET /api/state: every answer 200 with finite
+   frames, each op's wall ms and payload bytes, the control-step kernel
+   launched once a control step (track's steps and 64 for sim_step, no
+   other op); (c) one control step of the live sim's 1-env state after its
+   64 steps through the kernel and the plain version, judged as in phase
+   3 (the kernel's first check at a single env).
 Phase 3g, after phase 3: the quadruped (13 bodies, 12 hinge dofs, 36
 contact points) at 4096 envs near its standing pose in a bumpy stacked
 terrain, drawn on the CPU from 6 seeds: the kernel against the plain
@@ -3363,6 +3379,207 @@ def tools_phase(t, k8, device, smi):
     return dict(launches=b["launches"] + b["wide_launches"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the viewer and the studio
+# ---------------------------------------------------------------------------
+
+VIEW_BODY_TOL = 1e-4 + 2e-6  # 12a: 4-decimal body positions, f32 FK apart
+VIEW_CENTER_TOL = 1e-3 + 2e-6  # 12a: their mean, rounded to 3 decimals
+STUDIO_SIM_STEPS = 64  # 12b: sim_step's control steps (8 chunks of 8)
+STUDIO_OPT_ITERS = 300  # 12b: optimize at the studio's default
+
+
+def view_data(path):
+    """The DATA object of an exported viewer page."""
+    import re
+    html = Path(path).read_text()
+    return json.loads(re.search(r"const DATA = (.*?);\n", html,
+                                re.S).group(1))
+
+
+def view_phase(k8, device):
+    """12a: the CLI's view stage on an 8a clip against its 8c optimized
+    copy, on the card and on the CPU; the two pages' DATA must match."""
+    clip = Path(k8["paths"][0])
+    other = WORK / "gen" / "opt" / f"{clip.stem}_opt.npz"
+    out = WORK / "view"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    written, secs = {}, {}
+    for dev in (device.type, "cpu"):
+        t0 = time.perf_counter()
+        written[dev] = cli.main(["view", "--input", str(clip), "--compare",
+                                 str(other), "--out", str(out / f"{dev}.html"),
+                                 "--device", dev])
+        secs[dev] = time.perf_counter() - t0
+    got, want = (view_data(out / f"{dev}.html") for dev in (device.type,
+                                                             "cpu"))
+    body_err = 0.0
+    for k in ("title", "fps", "parents", "terrain", "path"):
+        if got[k] != want[k]:
+            raise AssertionError(f"phase 12a: {k} differs from the CPU's")
+    if abs(np.subtract(got["center"], want["center"])).max() > \
+            VIEW_CENTER_TOL:
+        raise AssertionError(f"phase 12a: center {got['center']} against "
+                             f"{want['center']}")
+    if len(got["clips"]) != 2 or len(want["clips"]) != 2:
+        raise AssertionError("phase 12a: not two clips")
+    for g, w in zip(got["clips"], want["clips"]):
+        for k in ("label", "color", "contacts"):
+            if g[k] != w[k]:
+                raise AssertionError(f"phase 12a: {k} differs from the CPU's")
+        g_bp, w_bp = np.asarray(g["body_pos"]), np.asarray(w["body_pos"])
+        if g_bp.shape != w_bp.shape or not np.isfinite(g_bp).all():
+            raise AssertionError(f"phase 12a: body_pos {g_bp.shape}")
+        body_err = max(body_err, float(np.abs(g_bp - w_bp).max()))
+    if body_err > VIEW_BODY_TOL:
+        raise AssertionError(f"phase 12a: body_pos {body_err} from the "
+                             f"CPU's (tolerance {VIEW_BODY_TOL})")
+    return dict(clip=clip.name, other=other.name, s=secs[device.type],
+                cpu_s=secs["cpu"], body_err=body_err,
+                frames=[len(c["body_pos"]) for c in got["clips"]],
+                png=len(written[device.type]) == 2,
+                html_bytes=(out / f"{device.type}.html").stat().st_size)
+
+
+def studio_phase(t, device):
+    """12b-c: the studio over HTTP on 127.0.0.1 from phases 5 and 7's
+    checkpoints; the ops a user runs to make, check and edit a clip, each
+    gated at 200 and finite frames; the kernel's launches per op; then one
+    control step of the live sim's 1-env state through the kernel and
+    the plain version."""
+    import http.client
+    import threading
+
+    from parc_torch.viewer import studio as studio_lib
+    ws = WORK / "studio"
+    shutil.rmtree(ws, ignore_errors=True)
+    ws.mkdir(parents=True)
+    model = humanoid_spec().build(device=device)
+    st = studio_lib.Studio(
+        model, md.load_motion_data(dataset_files(t["dataset"])[1]),
+        mdm_dir=str(WORK / "mdm"), tracker_dir=t["tracker"],
+        workspace=str(ws), device=device)
+    server = studio_lib.make_server(st, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    ops, sims = [], []
+    try:
+        host, port = server.server_address
+        conn = http.client.HTTPConnection(host, port, timeout=900)
+
+        def call(op, body=None):
+            n0, t0 = sub.control_step_packed.launches, time.perf_counter()
+            if body is None:
+                conn.request("GET", f"/api/{op}")
+            else:
+                conn.request("POST", f"/api/{op}", body=json.dumps(body),
+                             headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            raw = r.read()
+            profiling.sync(device)
+            ms = 1e3 * (time.perf_counter() - t0)
+            if r.status != 200:
+                raise AssertionError(f"phase 12b: {op} answered {r.status}: "
+                                     f"{raw[:300]!r}")
+            out = json.loads(raw)
+            for c in out["clips"]:
+                if not np.isfinite(np.asarray(c["body_pos"])).all():
+                    raise AssertionError(f"phase 12b: {op}: {c['label']} "
+                                         "not finite")
+            for m in (st.motion, st.overlay):
+                if m is not None and not np.isfinite(m.frames).all():
+                    raise AssertionError(f"phase 12b: {op}: frames not "
+                                         "finite")
+            ops.append(dict(op=op, ms=ms, bytes=len(raw), status=out["status"],
+                            launches=sub.control_step_packed.launches - n0))
+            return out
+
+        sub.control_step_packed.launches = 0
+        call("procgen", {"kind": "boxes", "x_dim": 32, "y_dim": 32})
+        out = call("astar", {"start": [0, 0], "end": [31, 31]})
+        if out["path"] is None:
+            raise AssertionError(f"phase 12b: A* {out['status']}")
+        call("mdm_gen", {})
+        call("recompute_contacts", {})
+        call("optimize", {"iters": STUDIO_OPT_ITERS})
+        call("accept_overlay", {})
+        motion = st.motion
+        track_steps = min(int(np.ceil(motion.frames.shape[0] / motion.fps
+                                      * 30) + 2), 600)
+        lib_cpu = ml.build_motion_lib(humanoid_spec().build(device="cpu"),
+                                      [motion], device="cpu")
+        track_steps = record.round_steps(lib_cpu, track_steps)
+        call("track", {})
+        call("sim_start", {})
+        call("sim_step", {"steps": STUDIO_SIM_STEPS})
+        sims.append(st._sim)
+        call("sim_stop", {})
+        call("flip", {})
+        call("resample", {"fps": 60})
+        n = st.motion.frames.shape[0]
+        call("slice", {"start": n // 8, "end": n - n // 8})
+        call("save", {"path": "studio_clip.npz"})
+        n = st.motion.frames.shape[0]
+        out = call("stitch", {"path": "studio_clip.npz",
+                              "range_a": [n // 2, n // 2 + 30]})
+        call("state")
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = {o["op"]: o["launches"] for o in ops}
+    want = {op: 0 for op in launches}
+    want.update(track=track_steps, sim_step=STUDIO_SIM_STEPS)
+    if launches != want:
+        raise AssertionError(f"phase 12b: control-step launches per op "
+                             f"{launches}, expected {want}")
+    if st.overlay is not None or st.motion.frames.shape[0] != n:
+        raise AssertionError("phase 12b: the stitch changed the clip's "
+                             "length")
+
+    sim = sims[0]
+    agent, es = sim["agent"], sim["es"]
+    with torch.no_grad():
+        action = agent.act(sim["state"], es.obs)
+    c = step_vs_plain(agent.env.model, agent.env, sim["lib"], es, action)
+    c["tol"] = judge(c, "phase 12c control step")
+    return dict(ops=ops, track_steps=track_steps,
+                launches=sum(launches.values()), check=c,
+                frames=len(sim["frames"]) * studio_lib.SIM_CHUNK)
+
+
+def viewer_phase(k8, t, device, smi):
+    """Phase 12: the viewer and the studio on the card."""
+    t0 = time.perf_counter()
+    a = view_phase(k8, device)
+    print(f"phase 12a: view through the CLI, {a['clip']} ({a['frames'][0]} "
+          f"frames) against {a['other']} ({a['frames'][1]}): "
+          f"{a['s']:.2f} s on the card, {a['cpu_s']:.2f} s on the CPU, "
+          f"{a['html_bytes']} B of HTML; body positions within "
+          f"{a['body_err']:.1e} of the CPU's (gate {VIEW_BODY_TOL:.1e}), "
+          f"the rest equal; PNG strip "
+          + ("drawn" if a["png"] else "not drawn (no matplotlib)")
+          + f" | {smi}")
+    b = studio_phase(t, device)
+    print(f"phase 12b: the studio over HTTP (127.0.0.1, device {device}, "
+          "PPOConfig() tracker from phase 5, MDMConfig() from phase 7): "
+          + "; ".join(f"{o['op']} {o['ms']:.1f} ms, {o['bytes']} B"
+                      + (f", {o['launches']} launches" if o["launches"]
+                         else "") + f" ({o['status']})" for o in b["ops"])
+          + f" | {smi}")
+    c = b["check"]
+    print(f"phase 12c: the live sim's 1-env state after {b['frames']} steps: "
+          f"kernel vs plain control step "
+          + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
+          + f" (tolerance state {c['tol'][0]:.1e}, contact "
+          f"{c['tol'][1]:.1e}); max|contact| {c['max_contact']:.1f} N "
+          f"| {smi}")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=b["launches"], track_steps=b["track_steps"],
+                check=c)
+
+
 def dp_worker(argv):
     """The ranks of phase 10, started by torchrun (``--dp-worker``)."""
     if argv[0] == "a":
@@ -3491,6 +3708,7 @@ def main():
     p9 = parkour_phase(t, device, smi)
     p10 = dp_phase(t, p9, device, smi)
     p11 = tools_phase(t, k8, device, smi)
+    p12 = viewer_phase(k8, t, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -3509,6 +3727,7 @@ def main():
                              "parkour": p9["launches"],
                              "ddp": p10["launches"],
                              "fidelity": p11["launches"],
+                             "studio": p12["launches"],
                              "quadruped": q["launches"]},
         "quadruped": {"ms": q["ms"], "plain_ms": q["plain_ms"],
                       "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],

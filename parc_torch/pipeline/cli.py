@@ -1,6 +1,6 @@
 """parc_torch pipeline CLI.
 
-Stages (those of the JAX package's CLI ported so far):
+Stages:
 
     python -m parc_torch.pipeline.cli create_dataset --motions_dir D \
         --out m.yaml
@@ -15,6 +15,10 @@ Stages (those of the JAX package's CLI ported so far):
     python -m parc_torch.pipeline.cli eval --dataset m.yaml --tracker_dir T
     python -m parc_torch.pipeline.cli setup_iter --root R --iter N
     python -m parc_torch.pipeline.cli metrics --motions_dir K [--out m.csv]
+    python -m parc_torch.pipeline.cli view --input clip.npz \
+        [--compare other.npz]
+    python -m parc_torch.pipeline.cli studio [--input clip.npz] \
+        [--mdm_dir M --tracker_dir T --port 8000 --workspace W]
 
 Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the plain PyTorch versions on the CPU). Any flag can also come from a YAML
@@ -420,6 +424,60 @@ def stage_optimize(cfg: dict):
     return written
 
 
+def stage_view(cfg: dict):
+    """Export a standalone HTML viewer for a clip (``--compare`` adds a
+    second clip beside it), and a PNG strip where matplotlib is installed
+    (reference: the MOTION_FORGE viewer app); returns the paths written."""
+    import importlib.util
+
+    from parc_torch.anim import motion_data as md
+    from parc_torch.viewer import html_viewer
+    dev = _device(cfg)
+    model = _build_model(dev)
+    motion = md.load_motion_data(cfg["input"])
+    out = cfg.get("out") or cfg["input"].rsplit(".", 1)[0] + ".html"
+    if cfg.get("compare"):
+        other = md.load_motion_data(cfg["compare"])
+        html_viewer.export_compare(
+            model, [motion, other], out,
+            labels=[os.path.basename(cfg["input"]),
+                    os.path.basename(cfg["compare"])],
+            title=os.path.basename(cfg["input"]), device=dev)
+    else:
+        html_viewer.export(model, motion, out,
+                           title=os.path.basename(cfg["input"]), device=dev)
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"wrote {out} (no .png strip: matplotlib is not installed)")
+        return [out]
+    from parc_torch.viewer import render
+    png = out.rsplit(".", 1)[0] + ".png"
+    render.render_motion_strip(model, motion, png, device=dev)
+    print(f"wrote {out} (+ .png strip)")
+    return [out, png]
+
+
+def stage_studio(cfg: dict):
+    """Interactive browser studio: terrain editing, A* planning, MDM
+    generation, motion editing/optimization, physics tracking in the loop
+    (reference: the MOTION_FORGE Polyscope app). Serves until interrupted.
+    """
+    from parc_torch.anim import motion_data as md
+    from parc_torch.viewer import studio
+    dev = _device(cfg)
+    motion = (md.load_motion_data(cfg["input"])
+              if cfg.get("input") else None)
+    s = studio.Studio(_build_model(dev), motion,
+                      mdm_dir=cfg.get("mdm_dir"),
+                      tracker_dir=cfg.get("tracker_dir"),
+                      seed=cfg.get("seed", 0),
+                      # MDMConfig / PPOConfig keys are picked inside
+                      mdm_config=cfg, tracker_config=cfg,
+                      workspace=cfg.get("workspace"), device=dev)
+    studio.run_studio(s, port=int(cfg.get("port", 8000)),
+                      host=cfg.get("host", "127.0.0.1"),
+                      allow_remote=bool(cfg.get("allow_remote", False)))
+
+
 STAGES = {
     "create_dataset": stage_create_dataset,
     "train_tracker": stage_train_tracker,
@@ -431,6 +489,8 @@ STAGES = {
     "augment": stage_augment,
     "optimize": stage_optimize,
     "metrics": stage_metrics,
+    "view": stage_view,
+    "studio": stage_studio,
 }
 
 
@@ -443,6 +503,8 @@ def main(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--device", default=None,
                    help="torch device of every stage (default cuda)")
+    p.add_argument("--input", default=None)
+    p.add_argument("--compare", default=None)
     p.add_argument("--dataset", default=None)
     p.add_argument("--motions_dir", default=None)
     p.add_argument("--out", default=None)
@@ -468,6 +530,10 @@ def main(argv=None):
     p.add_argument("--test_steps", type=int, default=None)
     p.add_argument("--test_episodes", type=int, default=None)
     p.add_argument("--diagnostics", action="store_true", default=None)
+    p.add_argument("--port", type=int, default=None)
+    p.add_argument("--host", default=None)
+    p.add_argument("--allow_remote", action="store_true", default=None)
+    p.add_argument("--workspace", default=None)
     p.add_argument("--env_name", default=None,
                    choices=["deepmimic", "parkour", "mgdm"])
     p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,17 @@ class RecordConfig:
     save_obs: bool = False
 
 
+def sim_frame(model: cm.CharModel, sim) -> Tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """The 34-D frames and the per-body contact flags (a contact force
+    above 1e-3 N) of a sim state, on its device."""
+    frame34 = torch.cat([sim.root_pos, rot.quat_to_exp_map(sim.root_rot),
+                         cm.rot_to_dof(model, sim.joint_rot)], dim=-1)
+    contacts = (torch.linalg.vector_norm(sim.contact_forces, dim=-1)
+                > 1e-3).float()
+    return frame34, contacts
+
+
 @torch.no_grad()
 def _rollout_record(agent: PPOAgent, lib: ml.MotionLib, state: AgentState,
                     motion_ids: torch.Tensor, start_times: torch.Tensor,
@@ -57,12 +68,7 @@ def _rollout_record(agent: PPOAgent, lib: ml.MotionLib, state: AgentState,
         # into the clip. Pre-step capture yields [s_0, ..., s_{done-1}]
         # including the initial state, matching the reference's per-step
         # appends (ig_parkour_env.py:957-995).
-        frame34 = torch.cat([
-            es.sim.root_pos,
-            rot.quat_to_exp_map(es.sim.root_rot),
-            cm.rot_to_dof(model, es.sim.joint_rot)], dim=-1)
-        contacts = (torch.linalg.vector_norm(es.sim.contact_forces, dim=-1)
-                    > 1e-3).float()
+        frame34, contacts = sim_frame(model, es.sim)
         action = agent.act(state, es.obs)
         new_es = env.step(lib, es, action, generator=generator)
         # pre-reset motion time of this step (new_es.motion_times is

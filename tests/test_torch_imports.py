@@ -4,9 +4,10 @@ scan of every import statement, including ones inside functions), and a
 fresh interpreter that imports every MDM and kin-gen module, the
 data-parallel module and the tools and retargeting modules, trains an MDM
 a step, samples from it, runs a tiny kin-gen with it, loads the quadruped
-from its MJCF export and exports a BVH has none of them loaded. The entry
-points that build a character or run a tool default to the card: without
-CUDA they raise and name ``device='cpu'``."""
+from its MJCF export, exports a BVH and an HTML viewer and builds the
+studio's state has none of them loaded. The entry points that build a
+character, run a tool, export a viewer or open a studio default to the
+card: without CUDA they raise and name ``device='cpu'``."""
 
 import ast
 import pathlib
@@ -57,7 +58,9 @@ def test_files_found():
                    "tools/metrics.py", "tools/convert.py",
                    "tools/fidelity.py", "tools/validation.py",
                    "retarget/keypoint_ik.py", "retarget/urdf.py",
-                   "utils/geom.py"):
+                   "utils/geom.py", "viewer/html_viewer.py",
+                   "viewer/render.py", "viewer/studio.py",
+                   "viewer/studio_page.py"):
         assert (ROOT / "parc_torch" / module) in FILES, module
 
 
@@ -116,6 +119,12 @@ def test_no_forbidden_module_after_an_mdm_runs():
         from parc_torch.data.synthetic import walking_clip
         convert.motion_to_bvh(model, walking_clip(n=5),
                               os.path.join(tempfile.mkdtemp(), "w.bvh"))
+        import parc_torch.viewer.render, parc_torch.viewer.studio_page
+        from parc_torch.viewer import html_viewer, studio
+        html_viewer.export(model, walking_clip(n=5),
+                           os.path.join(tempfile.mkdtemp(), "w.html"),
+                           device="cpu")
+        studio.Studio(model, walking_clip(n=5), device="cpu").state()
         print(sorted({m.split(".")[0] for m in sys.modules}))
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
@@ -128,15 +137,17 @@ def test_no_forbidden_module_after_an_mdm_runs():
 
 def test_entry_points_default_to_the_card(tmp_path):
     """Without CUDA, building a character, loading one, running the
-    fidelity sweeps or retargeting with the default device raises and
-    says how to run on the CPU."""
+    fidelity sweeps, retargeting, exporting a viewer or opening a studio
+    with the default device raises and says how to run on the CPU."""
     import numpy as np
     import torch
 
     from parc_torch.anim import char_model
     from parc_torch.data.humanoid import humanoid_spec
     from parc_torch.retarget import keypoint_ik, urdf
+    from parc_torch.data.synthetic import walking_clip
     from parc_torch.tools import fidelity
+    from parc_torch.viewer import html_viewer, studio
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the defaults run")
     path = tmp_path / "h.xml"
@@ -152,6 +163,10 @@ def test_entry_points_default_to_the_card(tmp_path):
                  lambda: keypoint_ik.retarget_keypoints(
                      model, np.zeros((3, 24, 3), np.float32)),
                  lambda: urdf.retarget_keypoints_to_robot(
-                     robot, np.zeros((3, 24, 3), np.float32))):
+                     robot, np.zeros((3, 24, 3), np.float32)),
+                 lambda: studio.Studio(),
+                 lambda: studio.Studio(model),
+                 lambda: html_viewer.export(model, walking_clip(n=5),
+                                            str(tmp_path / "w.html"))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
