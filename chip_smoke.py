@@ -205,6 +205,7 @@ import glob
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -249,13 +250,15 @@ ROLLOUT_STEPS = 64
 ROLLOUT_RUNS = 5  # 64-step runs timed; the first is the counted main path
 ATOL = 2e-4  # tests/test_pallas.py:190-193
 # judge: float64's own move under input perturbations of RERUN_REL
-# relative, the largest of RERUN_DRAWS draws, excuses an env where it is as
-# large as the kernel's miss, in at most EXCUSE_SHARE of a check's envs
+# relative, the largest of RERUN_DRAWS draws, excuses an env where it is at
+# least half the kernel's miss (both in the env's limits), in at most
+# EXCUSE_SHARE of a check's envs
 RERUN_DRAWS, RERUN_REL, EXCUSE_SHARE = 8, 1e-6, 1e-3
 CONTACT_ATOL, CONTACT_RTOL = 2e-3, 1e-5  # tests/test_torch_engine.py
 H = 1.0 / 120.0
 LOWER = 0.04  # m the phase-3 states are lowered into their terrain
 STATE_CHECK = ("root_pos", "joint_rot", "dof_vel", "body_pos")
+JUDGE_DIR = WORK / "judge"  # judge: the inputs of steps that failed envs
 
 # peak device-memory rates (bytes/s) by card, from NVIDIA's data sheets;
 # checked in order, the first substring of the nvidia-smi name wins
@@ -430,7 +433,7 @@ def terrain_cpu(terrain):
         if isinstance(getattr(terrain, f.name), torch.Tensor)})
 
 
-def env_errors(got, plain, cpu, want64, rerun):
+def env_errors(got, plain, cpu, want64, rerun, save=None):
     """A kernel-vs-plain check, env by env, for judge. Each of ``got`` (the
     kernel), ``plain`` (the plain f32 version on the card), ``cpu`` (the
     same on the CPU) and ``want64`` (the plain version in float64) is a
@@ -439,7 +442,9 @@ def env_errors(got, plain, cpu, want64, rerun):
     the same f32 code on the two devices lands up to 6.3x apart from
     float64 in the worst of 4096 envs (PERF.md, PR 7). ``rerun(envs)``
     gives float64's own move in those envs under input perturbations
-    (rerun_moves). Also the whole-batch figures that the phases print."""
+    (rerun_moves); ``save(path, envs, facts)`` writes those envs' packed
+    inputs for a replay on the CPU (replay_inputs). Also the whole-batch
+    figures that the phases print."""
     def dist(a, b):
         return (a.double() - b.double().to(a.device)).abs().amax(1).cpu()
 
@@ -458,7 +463,7 @@ def env_errors(got, plain, cpu, want64, rerun):
     def worst(k):
         return e[k].max().item()
     return dict(
-        env=e, rerun=rerun, state_err=worst("kp_s"),
+        env=e, rerun=rerun, save=save, state_err=worst("kp_s"),
         contact_err=worst("kp_c"),
         plain64_err={"state": worst("p64_s"), "contact": worst("p64_c"),
                      "card": {"state": worst("card_s"),
@@ -492,6 +497,29 @@ def rerun_moves(step64, inputs):
     return move_s, move_c
 
 
+def replay_inputs(args, out):
+    """A ``save(path, envs, facts)`` for env_errors: writes the envs'
+    columns of one packed control step (``args`` as control_step_packed
+    takes them, ``out`` the kernel's (state, contact forces)), the model,
+    the terrain, the step's parameters and ``facts``, so that the step can
+    be replayed on the CPU: through the plain version, in float64, and
+    through the g++ host build of the kernel's math
+    (tests/test_torch_substep_host.py)."""
+    model, params, terrain, state_p, const_p, tidx, sim_steps = args
+
+    def save(path, envs, facts):
+        i = envs.to(state_p.device)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(dict(model=model.to("cpu"), params=params,
+                        terrain=terrain_cpu(terrain), sim_steps=sim_steps,
+                        envs=envs.cpu(), state_p=state_p[:, i].cpu(),
+                        const_p=const_p[:, i].cpu(),
+                        tidx=None if tidx is None else tidx[i].cpu(),
+                        kernel=tuple(x[:, i].cpu() for x in out), **facts),
+                   path)
+    return save
+
+
 def packed_check(args, got, got_c, model64, terrain64):
     """env_errors of one packed control step (``args`` as
     control_step_packed takes them; ``got`` its kernel output), and the
@@ -518,7 +546,8 @@ def packed_check(args, got, got_c, model64, terrain64):
                                     const_p.double().T[i]]
                            + ([] if tidx is None else [tidx[i]]))
     c = env_errors((got.T, got_c.T), (want.T, want_c.T), (cpu.T, cpu_c.T),
-                   (want64.T, want64_c.T), rerun)
+                   (want64.T, want64_c.T), rerun,
+                   replay_inputs(args, (got, got_c)))
     return c, want, want_c
 
 
@@ -539,16 +568,30 @@ def judge(c, what, state_ratio=1.5):
 
     An env that fails is excused only where float64 itself is unstable
     there: with its input moved by RERUN_REL relative, float64's own step
-    moves by at least half the kernel's miss (each of the env's limits is
-    raised to twice that move); in at most EXCUSE_SHARE of the envs (at
-    least one), and the other envs' limits are then taken without them.
-    Returns (state tolerance, contact tolerance, {env: float64's moves})."""
+    moves by at least half the kernel's miss, both counted in the env's
+    limits, the largest share of a limit over the four (the env's limits
+    are all raised by one factor, the one that takes the limit float64's
+    move spends most of to twice that move). A contact point crossing its
+    threshold moves the state and the contact forces both, but which of
+    the two shows it at the step's end depends on the substep where it
+    falls: in the last sim step the contact forces (its mean over those
+    substeps), earlier the state alone. So float64 moving on either one
+    stands for both: in a 9b env float64's state moved 8.5x the kernel's
+    state miss while its contact forces moved 0.29x the kernel's contact
+    miss (PERF.md §6). The other envs' limits are then taken
+    without the excused envs, and an env that fails only those is printed
+    with float64's moves there and given the same test, round after round,
+    until no env fails; at most EXCUSE_SHARE of the envs (at least one) are
+    excused in all. Where an env fails or is excused, the step's inputs at
+    the envs concerned go to JUDGE_DIR (``c["save"]``) for a replay on the
+    CPU. Returns (state tolerance, contact tolerance, {env: float64's
+    moves}), the tolerances those of the last round."""
     e = c["env"]
     n = len(e["kp_s"])
 
-    def limits(keep):
-        p_s = e["p64_s"][keep].max().item()
-        p_c = e["p64_c"][keep].max().item()
+    def limits(keep):  # with every env excused, the plain tolerances
+        p_s, p_c = (e[k][keep].max().item() if keep.any() else 0.0
+                    for k in ("p64_s", "p64_c"))
         return (max(ATOL, 2.0 * p_s), max(CONTACT_ATOL, 2.0 * p_c),
                 max(ATOL, state_ratio * p_s), max(CONTACT_ATOL, 2.0 * p_c))
 
@@ -557,40 +600,70 @@ def judge(c, what, state_ratio=1.5):
         return ((e["kp_s"] > tol_s) | (e["kp_c"] > tol_c)
                 | (e["k64_s"] > lim_s) | (e["k64_c"] > lim_c))
 
-    def fail(why):
+    def report(envs, move_s, move_c):
+        return "; ".join(
+            f"env {k}: kernel vs float64 {e['k64_s'][k]:.3e} / "
+            f"{e['k64_c'][k]:.3e}, plain vs float64 {e['p64_s'][k]:.3e} / "
+            f"{e['p64_c'][k]:.3e}, kernel vs plain {e['kp_s'][k]:.3e} / "
+            f"{e['kp_c'][k]:.3e}, float64 moves {m_s:.3e} / {m_c:.3e}"
+            for k, m_s, m_c in zip(envs.tolist(), move_s.tolist(),
+                                   move_c.tolist()))
+
+    def saved(envs, **facts):  # the step's inputs at envs, for a replay
+        if c.get("save") is None:
+            return ""
+        path = JUDGE_DIR / (re.sub(r"[^\w.-]+", "_", what.strip()) + ".pt")
+        c["save"](path, envs[:64], dict(what=what, errors=e, **facts))
+        return f"; inputs saved to {path}"
+
+    def fail(why, lim):
         return AssertionError(
-            f"{what}: kernel disagrees with plain version{why}: state "
-            f"{c['state_err']} (tolerance {lim[0]}), contact "
-            f"{c['contact_err']} (tolerance {lim[1]}); vs float64 kernel "
-            f"{c['kernel64_err']}, plain {c['plain64_err']}")
+            f"{what}: kernel disagrees with plain version {why} (limits: "
+            f"kernel vs plain {lim[0]:.3e} / {lim[1]:.3e}, kernel vs float64 "
+            f"{lim[2]:.3e} / {lim[3]:.3e}, state / contact); whole batch: "
+            f"kernel vs plain {c['state_err']:.3e} / {c['contact_err']:.3e},"
+            f" vs float64 kernel {c['kernel64_err']}, plain "
+            f"{c['plain64_err']}")
     keep = torch.ones(n, dtype=torch.bool)
     lim = limits(keep)
-    bad = failing(lim)
-    excused = {}
-    if bad.any():
-        envs = bad.nonzero().flatten()
-        if len(envs) > max(1, int(EXCUSE_SHARE * n)):
-            raise fail(f" in {len(envs)} of {n} envs")
+    excused, tested = {}, []
+    for round_ in itertools.count(1):
+        envs = (failing(lim) & keep).nonzero().flatten()
+        if not len(envs):
+            break
+        tested.append(envs)
+        seen = torch.cat(tested)
+        if len(excused) + len(envs) > max(1, int(EXCUSE_SHARE * n)):
+            raise fail(f"in {len(seen)} of {n} envs by round {round_}"
+                       + saved(seen, limits=lim), lim)
         move_s, move_c = c["rerun"](envs)
+        if round_ > 1:
+            print(f"{what}: round {round_}: envs that fail the limits "
+                  f"taken without the excused envs {sorted(excused)}: "
+                  + report(envs, move_s, move_c))
         for j, env in enumerate(envs.tolist()):
-            raised = tuple(max(x, 2.0 * m.item()) for x, m in zip(
-                lim, (move_s[j], move_c[j], move_s[j], move_c[j])))
-            if failing(raised)[env]:
-                raise fail(f" in env {env}, where float64 itself moves "
-                           f"{move_s[j]:.3e} / {move_c[j]:.3e} under "
-                           f"{RERUN_REL} relative input perturbations")
+            moves = (move_s[j], move_c[j], move_s[j], move_c[j])
+            grow = max(1.0, 2.0 * max(m.item() / x
+                                      for m, x in zip(moves, lim)))
+            if failing(tuple(x * grow for x in lim))[env]:
+                one = slice(j, j + 1)
+                raise fail(f"in round {round_}, "
+                           f"{report(envs[one], move_s[one], move_c[one])}"
+                           f" under {RERUN_REL} relative input perturbations"
+                           + saved(seen, limits=lim), lim)
             excused[env] = (move_s[j].item(), move_c[j].item())
         keep[envs] = False
         lim = limits(keep)
-        if (failing(lim) & keep).any():
-            raise fail(f" past the excused envs {sorted(excused)}")
-        print(f"{what}: envs {sorted(excused)} excused: float64 itself "
-              f"moves " + ", ".join(f"{a:.3e} / {b:.3e}" for a, b in
-                                    excused.values())
-              + " (state / contact) under input perturbations of "
-              f"{RERUN_REL} relative; the kernel's miss there "
-              + ", ".join(f"{e['k64_s'][k]:.3e} / {e['k64_c'][k]:.3e}"
-                          for k in sorted(excused)))
+    if excused:
+        seen = torch.cat(tested)
+        print(f"{what}: {len(excused)} env(s) excused in {len(tested)} "
+              f"round(s), where float64 itself moves as far under input "
+              f"perturbations of {RERUN_REL} relative (state / contact): "
+              + ", ".join(f"env {k}: moves {m_s:.3e} / {m_c:.3e}, the "
+                          f"kernel's miss {e['k64_s'][k]:.3e} / "
+                          f"{e['k64_c'][k]:.3e}"
+                          for k, (m_s, m_c) in excused.items())
+              + saved(seen, limits=lim, excused=excused))
     return lim[0], lim[1], excused
 
 
@@ -767,8 +840,13 @@ def step_vs_plain(model, env, lib, es, action):
     model64, terrain64 = as_f64(model), terrain_f64(terrain)
     kw = dict(terrain_idx=es.motion_ids,
               sim_steps=env.cfg.sim_steps_per_control)
+    packed = []
+
+    def kernel(*args):  # the kernel, its packed inputs and outputs kept
+        packed.extend((args, sub.control_step_packed(*args)))
+        return packed[-1]
     got = engine.control_step(model, env.sim_params, terrain, es.sim,
-                              action, **kw)
+                              action, step_fn=kernel, **kw)
     plain = engine.control_step(model, env.sim_params, terrain, es.sim,
                                 action, step_fn=sub.control_step_packed_reference,
                                 **kw)
@@ -809,7 +887,7 @@ def step_vs_plain(model, env, lib, es, action):
         return rerun_moves(step64, [flat, action[i].double(),
                                     es.motion_ids[i]])
     c = env_errors(rows(got), rows(plain), rows(plain_cpu), rows(plain64),
-                   rerun)
+                   rerun, replay_inputs(*packed))
     step_err = {f: (getattr(got, f) - getattr(plain, f)).abs().max().item()
                 for f in STATE_CHECK}
     step_err["contact_forces"] = c["contact_err"]
@@ -870,7 +948,6 @@ def train(device):
     width. Each train_iter and the trainer's test rollout are wrapped to
     count the kernel's launches, time them, and keep the metrics; the
     wrappers are taken off before returning."""
-    shutil.rmtree(WORK, ignore_errors=True)
     motions = WORK / "motions" / "bench"
     for name, clip in zip(("stand", "walk1", "walk2"), bench_clips()):
         md.save_motion_data(str(motions / f"{name}.npz"), clip)
@@ -2524,7 +2601,7 @@ def rank_check(env, lib, state, action, what):
     es = state.env_state
     c = step_vs_plain(env.model, env, lib, es, action)
     c["tol"] = judge(c, what)
-    return {k: v for k, v in c.items() if k != "rerun"}
+    return {k: v for k, v in c.items() if k not in ("rerun", "save")}
 
 
 def dp_deviation(got, want, metrics, ref_metrics, start):
@@ -3167,26 +3244,35 @@ def retarget_phase(device):
                 before=before, after=after)
 
 
-def slerp_small_angle(model, a, b):
-    """(T, 34) mask of the frame columns that a slerp from frames ``a`` to
-    ``b`` (root, then each joint) computes in ``rot.slerp``'s small-angle
-    regime (sine of the half angle under 1.1e-3). There the slerp switches
-    to q0 where the cosine rounds to 1 and to the midpoint under 1e-3, so
-    it is discontinuous, and which branch float32 takes flips between two
-    devices (the JAX package's slerp has the same branches)."""
+def slerp_small_angle(models, a, b):
+    """(T, 34) mask of the frame columns whose slerp from frames ``a`` to
+    ``b`` (root, then each joint) takes one of ``rot.slerp``'s small-angle
+    branches on any of ``models``' devices: q0 where the cosine of the half
+    angle rounds to 1, the midpoint where its sine is under 1e-3. The slerp
+    is discontinuous there, and f32 resolves that sine only to about 20 %
+    near 1e-3, so which branch it takes flips between two devices (up to
+    1e-3 apart; the JAX package's slerp has the same branches). Each
+    device's test is the slerp's own, on that device's f32 quaternions."""
     from parc_torch.utils import rotation as rot
-
-    def quats(fr):
-        fr = torch.as_tensor(fr, dtype=torch.float64)
-        return torch.cat([rot.exp_map_to_quat(fr[:, 3:6])[:, None],
-                          cm.dof_to_rot(as_f64(model), fr[:, 6:])], 1)
-    c = (quats(a) * quats(b)).sum(-1).abs().clamp(max=1.0)
-    small = (torch.sqrt(1.0 - c * c) < 1.1e-3).numpy()      # (T, J)
+    small = torch.zeros((len(a), models[0].num_bodies), dtype=torch.bool)
+    for model in models:
+        fa, fb = (torch.as_tensor(np.asarray(x, np.float32),
+                                  device=model.device) for x in (a, b))
+        pairs = ((rot.exp_map_to_quat(fa[:, 3:6]),
+                  rot.exp_map_to_quat(fb[:, 3:6])),
+                 (cm.dof_to_rot(model, fa[:, 6:]),
+                  cm.dof_to_rot(model, fb[:, 6:])))
+        for cols, (q0, q1) in zip((slice(0, 1), slice(1, None)), pairs):
+            cos_half = torch.abs(torch.sum(q0 * q1, dim=-1))
+            c = torch.clamp(cos_half, -1.0, 1.0)
+            sin_half = torch.sqrt(torch.clamp(1.0 - c * c, min=1e-12))
+            small[:, cols] |= ((sin_half < 1e-3) | (cos_half >= 1.0)).reshape(
+                len(a), -1).cpu()
     mask = np.zeros((len(a), 34), bool)
-    mask[:, 3:6] = small[:, 0:1]
-    for j in range(1, model.num_bodies):
-        o, e = model.joint_dof_slice(j)
-        mask[:, 6 + o:6 + e] = small[:, j:j + 1]
+    mask[:, 3:6] = small[:, 0:1].numpy()
+    for j in range(1, models[0].num_bodies):
+        o, e = models[0].joint_dof_slice(j)
+        mask[:, 6 + o:6 + e] = small[:, j:j + 1].numpy()
     return mask
 
 
@@ -3215,8 +3301,11 @@ def edits_phase(clip_path, other_path, device):
             d = np.where(edge, 0.0, d)
         errs[name] = float(d.max())
         if errs[name] > TOOLS_REL:
+            at = np.unravel_index(np.argmax(d), d.shape)
             raise AssertionError(f"phase 11e: {name} card vs CPU "
-                                 f"{errs[name]} (gate {TOOLS_REL})")
+                                 f"{errs[name]} at (frame, column) {at}: "
+                                 f"card {g[at]}, CPU {w[at]} (gate "
+                                 f"{TOOLS_REL})")
 
     idx = me._linspace(0.0, (len(f) - 1) / clip.fps,
                        int(round((len(f) - 1) / clip.fps * 20.0)) + 1)
@@ -3225,10 +3314,11 @@ def edits_phase(clip_path, other_path, device):
     i1 = np.minimum(i0 + 1, len(f) - 1)
     close("resample_fps", me.resample_fps(card, f, clip.fps, 20.0),
           me.resample_fps(cpu, f, clip.fps, 20.0),
-          slerp_small_angle(cpu, f[i0], f[i1]))
+          slerp_small_angle((card, cpu), f[i0], f[i1]))
     back = f[::-1].copy()
     edge = np.zeros((2 * len(f) - 8, 34), bool)
-    edge[len(f) - 8:len(f)] = slerp_small_angle(cpu, f[-8:], back[:8])
+    edge[len(f) - 8:len(f)] = slerp_small_angle((card, cpu), f[-8:],
+                                                back[:8])
     close("blend_motions", me.blend_motions(card, f, back, 8),
           me.blend_motions(cpu, f, back, 8), edge)
     close("correct_foot_ground_pen", me.correct_foot_ground_pen(card, f, 0.1),
@@ -3597,6 +3687,7 @@ def main():
         sys.exit("chip_smoke: CUDA is not available; this script runs only "
                  "on an NVIDIA GPU")
     device = torch.device("cuda")
+    shutil.rmtree(WORK, ignore_errors=True)
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -46,12 +46,22 @@ def save(directory: str, step: int, state: Any) -> str:
 
 
 def all_steps(directory: str) -> List[int]:
-    """All saved checkpoint steps, ascending."""
+    """All saved checkpoint steps, ascending. Step directories without
+    ``state.pt`` only (an orbax run of the JAX package) raise, naming the
+    converter."""
     if not os.path.isdir(directory):
         return []
-    return sorted(int(d) for d in os.listdir(directory)
-                  if d.isdigit()
-                  and os.path.isfile(os.path.join(directory, d, _FILE)))
+    dirs = sorted(int(d) for d in os.listdir(directory) if d.isdigit())
+    steps = [d for d in dirs
+             if os.path.isfile(os.path.join(directory, str(d), _FILE))]
+    if dirs and not steps:
+        raise FileNotFoundError(
+            f"{directory} holds step directories {dirs} without {_FILE}: an "
+            f"orbax run of the JAX package, which this package does not "
+            f"read. Convert the run where JAX is installed, with `python "
+            f"tools/orbax_to_torch.py SRC_RUN_DIR DST_RUN_DIR`, and pass "
+            f"DST_RUN_DIR")
+    return steps
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -62,9 +72,12 @@ def latest_step(directory: str) -> Optional[int]:
 def restore(directory: str, step: Optional[int] = None,
             map_location="cpu") -> Any:
     """Load step ``step`` (the latest when None) onto ``map_location``."""
-    step = latest_step(directory) if step is None else int(step)
+    steps = all_steps(directory)  # raises on an orbax run
     if step is None:
-        raise FileNotFoundError(f"no checkpoints in {directory}")
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+        step = steps[-1]
+    step = int(step)
     path = os.path.join(directory, str(step), _FILE)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no checkpoint at step {step} in "
