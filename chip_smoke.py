@@ -107,7 +107,9 @@ Phases, each printing one line of facts:
    checkpoint whose fail rates carry the terrain slot; (b) the kernel
    against the plain version, as in phase 3, on 6 successive control
    steps of the parkour env from the state after a replan, the mgdm rows
-   on the platform slot of the grown terrain stack;
+   on the platform slot of the grown terrain stack, each step's limits
+   printed under judge's rule and the old one (where the plain version's
+   worst env sets every env's limits), and the largest over the steps;
    (c) one train_iter each of the vision policies (dm_cnn_mlp, dm_vit,
    bf16 trunks) on that env at 4096 envs, an act call's ms, and a forward
    pass bf16 against f32 within (0, 2e-2) relative; (d) ``record`` (one
@@ -551,6 +553,13 @@ def packed_check(args, got, got_c, model64, terrain64):
     return c, want, want_c
 
 
+def limits_text(lim):
+    """judge's four limits: kernel vs plain and kernel vs float64, each
+    state / contact."""
+    return (f"kernel vs plain {lim[0]:.3e} / {lim[1]:.3e}, kernel vs "
+            f"float64 {lim[2]:.3e} / {lim[3]:.3e}")
+
+
 def judge(c, what, state_ratio=1.5):
     """Fail unless the kernel agrees with the plain version (``c`` from
     env_errors): the state within 2e-4 and the contact forces within
@@ -582,12 +591,37 @@ def judge(c, what, state_ratio=1.5):
     without the excused envs, and an env that fails only those is printed
     with float64's moves there and given the same test, round after round,
     until no env fails; at most EXCUSE_SHARE of the envs (at least one) are
-    excused in all. Where an env fails or is excused, the step's inputs at
-    the envs concerned go to JUDGE_DIR (``c["save"]``) for a replay on the
-    CPU. Returns (state tolerance, contact tolerance, {env: float64's
-    moves}), the tolerances those of the last round."""
+    excused in all. These rounds alone are the old rule.
+
+    The limits are one set for every env, so an env where the plain
+    version itself lands on float64's other branch would loosen them for
+    all (10.21 on the state and 1,614.7 N on the contact in one 9b step on
+    the card, PERF.md §6). So the plain version's worst envs get the same
+    test: where float64 moves at least half the plain version's miss
+    there, moves and misses counted in the limits the other envs set, the
+    env is taken out of the limits and judged by its own, raised as an
+    excused env's are; the limits are taken again without it and the next
+    worst plain env is tested, until the worst left is stable. A plain env
+    is tested only where a verdict turns on it: where taking the plain
+    version's worst envs (at most what the cap leaves room for, and one
+    more) out of the limits fails some other env. Envs taken out and
+    excused count under the one EXCUSE_SHARE; where the plain side would
+    go past it, the worst plain envs left go on setting the limits, and the
+    printed line says so. An env that fails only the lower limits gets the
+    test of an excused env; where that finds no room, the last plain env
+    taken out sets the limits again, so the kernel is never failed for the
+    plain version's instability. Every env's limits are at most the old
+    rule's. Each env is rerun at most once a call.
+
+    Each call prints its limits under both rules and the envs taken out,
+    and leaves them in ``c["limits"]``. Where an env fails, is excused or
+    is taken out, the step's inputs at the envs concerned go to JUDGE_DIR
+    (``c["save"]``) for a replay on the CPU. Returns (state tolerance,
+    contact tolerance, {env: float64's moves} of the envs excused or taken
+    out), the tolerances those of the last round."""
     e = c["env"]
     n = len(e["kp_s"])
+    cap = max(1, int(EXCUSE_SHARE * n))
 
     def limits(keep):  # with every env excused, the plain tolerances
         p_s, p_c = (e[k][keep].max().item() if keep.any() else 0.0
@@ -600,14 +634,46 @@ def judge(c, what, state_ratio=1.5):
         return ((e["kp_s"] > tol_s) | (e["kp_c"] > tol_c)
                 | (e["k64_s"] > lim_s) | (e["k64_c"] > lim_c))
 
-    def report(envs, move_s, move_c):
+    def share(xs, lim):  # the largest share of a limit; xs (state, contact)
+        return max(x / y for x, y in zip(xs + xs, lim))
+
+    def raised(lim, moves):  # an env's limits, raised by float64's moves
+        grow = max(1.0, 2.0 * share(moves, lim))
+        return tuple(x * grow for x in lim)
+
+    moved = {}  # env -> float64's moves (state, contact)
+
+    def rerun(envs):
+        new = [k for k in envs if k not in moved]
+        if new:
+            m_s, m_c = c["rerun"](torch.tensor(new))
+            moved.update(zip(new, zip(m_s.tolist(), m_c.tolist())))
+        return [moved[k] for k in envs]
+
+    def worst_plain(keep, stable, k):
+        """The plain version's k worst envs on the state and on the
+        contact, each run down to the first stable env or an error that
+        raises no limit above its floor."""
+        idx = keep.nonzero().flatten()
+        runs = []
+        for q, least in (("p64_s", ATOL / max(2.0, state_ratio)),
+                         ("p64_c", CONTACT_ATOL / 2.0)):
+            vals = e[q][idx]
+            run = []
+            for i in vals.topk(min(k, len(idx))).indices.tolist():
+                if vals[i] <= least or idx[i].item() in stable:
+                    break
+                run.append(idx[i].item())
+            runs.append(run)
+        return runs
+
+    def report(envs, moves):
         return "; ".join(
             f"env {k}: kernel vs float64 {e['k64_s'][k]:.3e} / "
             f"{e['k64_c'][k]:.3e}, plain vs float64 {e['p64_s'][k]:.3e} / "
             f"{e['p64_c'][k]:.3e}, kernel vs plain {e['kp_s'][k]:.3e} / "
             f"{e['kp_c'][k]:.3e}, float64 moves {m_s:.3e} / {m_c:.3e}"
-            for k, m_s, m_c in zip(envs.tolist(), move_s.tolist(),
-                                   move_c.tolist()))
+            for k, (m_s, m_c) in zip(envs, moves))
 
     def saved(envs, **facts):  # the step's inputs at envs, for a replay
         if c.get("save") is None:
@@ -616,55 +682,115 @@ def judge(c, what, state_ratio=1.5):
         c["save"](path, envs[:64], dict(what=what, errors=e, **facts))
         return f"; inputs saved to {path}"
 
+    def seen():
+        return torch.cat(tested + [torch.tensor(list(out), dtype=torch.long)])
+
     def fail(why, lim):
         return AssertionError(
             f"{what}: kernel disagrees with plain version {why} (limits: "
-            f"kernel vs plain {lim[0]:.3e} / {lim[1]:.3e}, kernel vs float64 "
-            f"{lim[2]:.3e} / {lim[3]:.3e}, state / contact); whole batch: "
+            f"{limits_text(lim)}, state / contact); whole batch: "
             f"kernel vs plain {c['state_err']:.3e} / {c['contact_err']:.3e},"
             f" vs float64 kernel {c['kernel64_err']}, plain "
             f"{c['plain64_err']}")
+    perturbed = f" under {RERUN_REL} relative input perturbations"
     keep = torch.ones(n, dtype=torch.bool)
     lim = limits(keep)
-    excused, tested = {}, []
+    excused, tested, out = {}, [], {}
     for round_ in itertools.count(1):
         envs = (failing(lim) & keep).nonzero().flatten()
         if not len(envs):
             break
         tested.append(envs)
-        seen = torch.cat(tested)
-        if len(excused) + len(envs) > max(1, int(EXCUSE_SHARE * n)):
-            raise fail(f"in {len(seen)} of {n} envs by round {round_}"
-                       + saved(seen, limits=lim), lim)
-        move_s, move_c = c["rerun"](envs)
+        if len(excused) + len(envs) > cap:
+            raise fail(f"in {len(seen())} of {n} envs by round {round_}"
+                       + saved(seen(), limits=lim), lim)
+        moves = rerun(envs.tolist())
         if round_ > 1:
             print(f"{what}: round {round_}: envs that fail the limits "
                   f"taken without the excused envs {sorted(excused)}: "
-                  + report(envs, move_s, move_c))
-        for j, env in enumerate(envs.tolist()):
-            moves = (move_s[j], move_c[j], move_s[j], move_c[j])
-            grow = max(1.0, 2.0 * max(m.item() / x
-                                      for m, x in zip(moves, lim)))
-            if failing(tuple(x * grow for x in lim))[env]:
-                one = slice(j, j + 1)
-                raise fail(f"in round {round_}, "
-                           f"{report(envs[one], move_s[one], move_c[one])}"
-                           f" under {RERUN_REL} relative input perturbations"
-                           + saved(seen, limits=lim), lim)
-            excused[env] = (move_s[j].item(), move_c[j].item())
+                  + report(envs.tolist(), moves))
+        for env, m in zip(envs.tolist(), moves):
+            if failing(raised(lim, m))[env]:
+                raise fail(f"in round {round_}, {report([env], [m])}"
+                           + perturbed + saved(seen(), limits=lim), lim)
+            excused[env] = m
         keep[envs] = False
         lim = limits(keep)
+    old = lim
+    # the plain side: threshold envs of the plain version out of the limits
+    stable, left, undo, held, spared = set(), [], None, None, []
+    while True:
+        envs = (failing(lim) & keep).nonzero().flatten()
+        if len(envs):  # envs that fail only the lower limits
+            tested.append(envs)
+            moves = rerun(envs.tolist())
+            for env, m in zip(envs.tolist(), moves):
+                if failing(tuple(map(min, raised(lim, m), old)))[env]:
+                    raise fail(
+                        f"once plain envs {sorted(out)} were taken out of "
+                        f"the limits (the old rule's: {limits_text(old)}), "
+                        f"{report([env], [m])}" + perturbed
+                        + saved(seen(), limits=lim, old=old), lim)
+            if len(excused) + len(out) + len(envs) > cap:
+                keep, lim, excused, out, last = undo
+                left = [last]
+                break
+            excused.update(zip(envs.tolist(), moves))
+            keep[envs] = False
+            lim = limits(keep)
+            continue
+        room = cap - len(excused) - len(out)
+        runs = worst_plain(keep, stable, room + 1)
+        chain = torch.zeros(n, dtype=torch.bool)
+        chain[torch.tensor(sum(runs, []), dtype=torch.long)] = True
+        tight = limits(keep & ~chain)
+        if not (failing(tight) & keep & ~chain).any():
+            held, spared = tight, sorted(set(sum(runs, [])))
+            break
+        if not room:
+            left = list(dict.fromkeys(sum(runs, [])))
+            break
+        rerun(list(dict.fromkeys(runs[0][:room] + runs[1][:room])))
+        for h in dict.fromkeys(run[0] for run in runs if run):
+            without = keep.clone()
+            without[h] = False
+            lim_h, m = limits(without), moved[h]
+            miss = (e["p64_s"][h].item(), e["p64_c"][h].item())
+            if 2.0 * share(m, lim_h) < share(miss, lim_h):
+                stable.add(h)
+                continue
+            if failing(tuple(map(min, raised(lim_h, m), old)))[h]:
+                raise fail(f"in plain env {h}, taken out of the limits, "
+                           f"{report([h], [m])}" + perturbed
+                           + saved(seen(), limits=lim_h, old=old), lim_h)
+            undo = (keep, lim, dict(excused), dict(out), h)
+            keep, lim = without, limits(without)
+            out[h] = m
+            break
     if excused:
-        seen = torch.cat(tested)
         print(f"{what}: {len(excused)} env(s) excused in {len(tested)} "
               f"round(s), where float64 itself moves as far under input "
               f"perturbations of {RERUN_REL} relative (state / contact): "
               + ", ".join(f"env {k}: moves {m_s:.3e} / {m_c:.3e}, the "
                           f"kernel's miss {e['k64_s'][k]:.3e} / "
                           f"{e['k64_c'][k]:.3e}"
-                          for k, (m_s, m_c) in excused.items())
-              + saved(seen, limits=lim, excused=excused))
-    return lim[0], lim[1], excused
+                          for k, (m_s, m_c) in excused.items()))
+    held = held or lim
+    c["limits"] = dict(new=lim, old=old, held=held, out=out, left=left)
+    print(f"{what}: limits {limits_text(lim)} (state / contact); the old "
+          f"rule's {limits_text(old)}; "
+          + ("plain envs taken out of the limits, where float64 moves at "
+             "least half the plain version's miss: " + report(list(out),
+                                                              out.values())
+             if out else "no plain env taken out")
+          + (f"; every other env but plain envs {spared} within "
+             f"{limits_text(held)} (not rerun: no verdict turns on them)"
+             if held != lim else "")
+          + (f"; the cap of {cap} env(s) taken out or excused reached: "
+             f"plain env(s) {left} go on setting the limits" if left else "")
+          + (saved(seen(), limits=lim, old=old, excused=excused, out=out)
+             if excused or out else ""))
+    return lim[0], lim[1], {**excused, **out}
 
 
 def check_kernel(model, lib, device):
@@ -1280,8 +1406,10 @@ def serve_mdm(mdm, t7, lib, model, batch, device):
         if r["calls"] != r["expect"]:
             raise AssertionError(f"{name}: {r['calls']} denoiser calls, "
                                  f"expected {r['expect']}")
-        r["root_travel"] = (f34[:, -1, :2] - prev34[:, -1, :2]).norm(
-            dim=-1).mean().item() if name != "DDPM" else float("nan")
+        prev = (prev34 if name != "DDPM" else gen_lib.frames34_from_features(
+            mdm, batch.prev_states)[0])
+        r["root_travel"] = (f34[:, -1, :2] - prev[:, -1, :2]).norm(
+            dim=-1).mean().item()
     return out
 
 
@@ -2112,9 +2240,17 @@ def parkour_phase(t, device, smi):
     for i, c in enumerate(s["checks"]):
         c["tol"] = judge(c, f"phase 9b parkour control step {i} "
                                  f"steps after a replan")
-    print(f"phase 9b: all {PARKOUR_CHECKS} within phase 3's judge "
-          f"(tolerance state {max(c['tol'][0] for c in s['checks']):.1e} "
-          f"at most)")
+    lims = [c["limits"] for c in s["checks"]]
+
+    def most(rule):
+        return [max(x[rule][i] for x in lims) for i in range(4)]
+    print(f"phase 9b: all {PARKOUR_CHECKS} within phase 3's judge; the "
+          f"largest limits over the steps {limits_text(most('new'))} "
+          f"(state / contact), the old rule's {limits_text(most('old'))}; "
+          f"every env but those taken out, excused or not rerun within "
+          f"{limits_text(most('held'))}; "
+          f"{sum(len(x['out']) for x in lims)} plain env(s) taken out, "
+          f"{sum(bool(x['left']) for x in lims)} step(s) at the cap | {smi}")
     v = vision_policies(p, device)
     for name, r in v.items():
         print(f"phase 9c: {name} ({r['params']} parameters, bf16 trunk): "
