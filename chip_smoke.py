@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of parc_torch on one NVIDIA GPU: build the kernel, check it,
 drive the tracker rollout, training, the MDM, kin-gen, the parkour env,
-the tools and the studio at full width, and report.
+the tools, the studio and one PARC iteration's hand-off at full width,
+and report.
 
     python3 chip_smoke.py
 
@@ -44,7 +45,8 @@ Phases, each printing one line of facts:
    parameters finite; the parameters moved; 3 x 32 x 4096 samples counted
    by the agent and by the normalizer; a checkpoint at step 3;
 6. ``record`` from that checkpoint into one env per clip (any num_envs
-   restores) and ``eval --diagnostics`` at 64 envs, through the CLI: the
+   restores; cut to 2 of its 6 start fractions, one retry) and ``eval
+   --diagnostics`` at 64 envs, through the CLI: the
    recorded clips (0 of 3 is expected of 3 iterations of training) are
    finite and 34-D, and every step launched the kernel once; then, from
    the record stage's env (3 envs: part of one block, the kernel's tail
@@ -76,7 +78,8 @@ Phases, each printing one line of facts:
    cut from 10 s and the contact optimization from 500 Adam iterations to
    250: (a) ``kin_gen`` through the CLI, 2 motion slots
    with 2 terrains a batch (64 rows a denoise step), 5 s paths; (b) the
-   sequential mode once, 1 slot, 2 s; each with its seconds, windows, rows,
+   sequential mode once, 1 slot, 2 s, its contact optimization cut to 100
+   Adam iterations; each with its seconds, windows, rows,
    frames generated per second, denoiser calls (gated at windows x 201),
    native A* ms per plan, the contact optimization's ms per Adam iteration
    and its summed loss before and after (gated: finite, not raised), how
@@ -105,7 +108,7 @@ Phases, each printing one line of facts:
    and denoiser calls (gated); a control step with and without a replan,
    a replan's device busy time and idle share; the peak device memory; a
    checkpoint whose fail rates carry the terrain slot; (b) the kernel
-   against the plain version, as in phase 3, on 6 successive control
+   against the plain version, as in phase 3, on 3 successive control
    steps of the parkour env from the state after a replan, the mgdm rows
    on the platform slot of the grown terrain stack, each step's limits
    printed under judge's rule and the old one (where the plain version's
@@ -186,6 +189,32 @@ Phases, each printing one line of facts:
    other op); (c) one control step of the live sim's 1-env state after its
    64 steps through the kernel and the plain version, judged as in phase
    3 (the kernel's first check at a single env).
+13. one PARC iteration's hand-off, from phases 5, 7 and 8's outputs through
+   the CLI and the configs that 8c's ``setup_iter`` wrote: (a)
+   ``iter_0/motions+gen.yaml`` by ``create_dataset`` over one motions
+   directory holding phase 5's 3 bench clips and every clip of phase 8
+   (8a, 8b, 8c; a class a stage, keep thresholds at infinity), each listed
+   clip reloaded equal to what its stage saved and the motion library's
+   terrain stack one slot a clip; (b) ``train_tracker --config
+   iter_0/train_tracker.yaml`` at 4096 envs, PPOConfig(), 2 iterations, the
+   test rollout once and cut to 100 steps, gated as in phase 5 (32
+   launches a train_iter, one a test step, losses and parameters finite,
+   the parameters moved, the sample count, a checkpoint at step 2); (c)
+   from (b)'s env after SETTLE more steps, with rows of the box-terrain
+   slots in contact, one control step through the kernel and the plain
+   version, judged as in phase 3, with the contact points that lie within
+   1e-4 cell of a grid line beside a wall (where the bilinear normal
+   jumps) counted; (d) ``record --config iter_0/record.yaml`` (cut to one
+   start fraction) and ``eval --diagnostics`` from (b)'s checkpoint: frames
+   finite and 34-D, each recorded clip on its source clip's terrain, one
+   record round of launches, eval launches = test steps, the diagnostics'
+   rows under the JAX package's names; (e) ``setup_iter --iter 1``,
+   ``create_dataset --config iter_0/create_dataset.yaml`` where (d)
+   recorded a clip (else iteration 0's motions+gen.yaml stands in), and
+   ``train_mdm --config iter_1/train_mdm.yaml --init_from`` phase 7's run
+   for one epoch of 50 steps at MDMConfig(): the state it starts from
+   equal to phase 7's checkpoint bit for bit, the loss finite; the same
+   call again resumes from its own checkpoint and ignores --init_from.
 Phase 3g, after phase 3: the quadruped (13 bodies, 12 hinge dofs, 36
 contact points) at 4096 envs near its standing pose in a bumpy stacked
 terrain, drawn on the CPU from 6 seeds: the kernel against the plain
@@ -240,12 +269,14 @@ from parc_torch.pipeline import record, train_tracker
 from parc_torch.pipeline.kin_gen import KinGenConfig
 from parc_torch.utils import checkpoint as ckpt_lib
 from parc_torch.utils import profiling
+from parc_torch.utils import rotation as rot
 from parc_torch.utils import terrain as terrain_lib
 from parc_torch.utils.terrain import Terrain
 
 NUM_ENVS = 4096
 TRAIN_ITERS = 3  # phase 5; the test rollout runs once, at iteration 1
 EVAL_ENVS = 64   # phase 6
+RECORD_FRACTIONS = (0.0, 0.1)  # phase 6's record: 2 of its 6 start fractions
 SETTLE = 10      # phase 6: control steps before the kernel-vs-plain step
 WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 ROLLOUT_STEPS = 64
@@ -261,6 +292,7 @@ H = 1.0 / 120.0
 LOWER = 0.04  # m the phase-3 states are lowered into their terrain
 STATE_CHECK = ("root_pos", "joint_rot", "dof_vel", "body_pos")
 JUDGE_DIR = WORK / "judge"  # judge: the inputs of steps that failed envs
+ITER_ROOT = WORK / "parc"  # 8c and 13: setup_iter's root
 
 # peak device-memory rates (bytes/s) by card, from NVIDIA's data sheets;
 # checked in order, the first substring of the nvidia-smi name wins
@@ -273,9 +305,9 @@ MDM_WINDOWS = 64  # phase 7: training batch and generated windows
 MDM_BF16_TOL, MDM_CPU_TOL = 2e-2, 1e-4  # phase 7b, relative max errors
 # phase 8: kin-gen at KinGenConfig() width; run length cut from 10 s
 KIN_MOTIONS, KIN_TERRAINS_PER_BATCH, KIN_SECONDS = 2, 2, 5.0  # 8a
-KIN_SEQ_SECONDS = 2.0  # 8b, one motion slot
+KIN_SEQ_SECONDS, KIN_SEQ_OPT_ITERS = 2.0, 100  # 8b, one motion slot
 OPT_ITERS, AUG_MOTIONS, AUG_ITERS = 250, 2, 100  # 8c (defaults 3000, 1000)
-KIN_OPT_ITERS = 250  # 8a-b, kin_gen's contact optimization (default 500)
+KIN_OPT_ITERS = 250  # 8a, kin_gen's contact optimization (default 500)
 KIN_CHECK_ROWS, KIN_CHECK_SEED = 8, 3  # 8d, 8e
 # 8d, card vs CPU in f32, relative max errors: a window's frames over a
 # box terrain, both given the CPU's local heightfield; the motion-opt loss
@@ -289,7 +321,7 @@ PARKOUR_MGDM, PARKOUR_TEST_STEPS = 512, 100
 # the state after a replan (that state depends on phase 7a's training, which
 # is not deterministic on the card; the spread over the steps is what a run
 # of this script can see of how the check varies)
-PARKOUR_CHECKS = 6
+PARKOUR_CHECKS = 3
 
 
 def nvidia_smi() -> str:
@@ -1071,9 +1103,7 @@ def bench_clips():
 
 def train(device):
     """Phase 5: create_dataset and train_tracker through the CLI, at full
-    width. Each train_iter and the trainer's test rollout are wrapped to
-    count the kernel's launches, time them, and keep the metrics; the
-    wrappers are taken off before returning."""
+    width."""
     motions = WORK / "motions" / "bench"
     for name, clip in zip(("stand", "walk1", "walk2"), bench_clips()):
         md.save_motion_data(str(motions / f"{name}.npz"), clip)
@@ -1087,7 +1117,18 @@ def train(device):
         clip = md.load_motion_data(f)
         if clip.terrain.hf_mask is None or clip.hf_mask_inds is None:
             raise AssertionError(f"create_dataset wrote no masks into {f}")
+    t = counted_train(["--dataset", dataset, "--out_dir", str(tracker),
+                       "--device", device.type], tracker, TRAIN_ITERS,
+                      device, "phase 5")
+    return dict(t, dataset=dataset, dataset_s=dataset_s)
 
+
+def counted_train(args, tracker, iters_asked, device, what):
+    """train_tracker through the CLI at NUM_ENVS envs for ``iters_asked``
+    iterations (``args`` give the rest), gated. Each train_iter and the
+    trainer's test rollout are wrapped to count the kernel's launches, time
+    them, and keep the metrics, the agent and the motion library; the
+    wrappers are taken off before returning."""
     iters, tests, start = [], [], {}
     train_iter, make_test_fn = PPOAgent.train_iter, train_tracker.make_test_fn
 
@@ -1105,7 +1146,8 @@ def train(device):
                         - before.get(k, {"total_s": 0.0})["total_s"])
               for k in ("rollout", "update") if k in after}
         iters.append(dict(launches=sub.control_step_packed.launches - n0,
-                          wall_s=wall, metrics=out[1], agent=agent, **ms))
+                          wall_s=wall, metrics=out[1], agent=agent, lib=lib,
+                          **ms))
         return out
 
     def counted_test_fn(agent, *args, **kwargs):
@@ -1128,10 +1170,8 @@ def train(device):
             torch.cuda.reset_peak_memory_stats(device)
         sub.control_step_packed.launches = 0
         t0 = time.perf_counter()
-        state = cli.main(["train_tracker", "--dataset", dataset, "--out_dir",
-                          str(tracker), "--num_envs", str(NUM_ENVS),
-                          "--max_iters", str(TRAIN_ITERS), "--device",
-                          device.type])
+        state = cli.main(["train_tracker", "--num_envs", str(NUM_ENVS),
+                          "--max_iters", str(iters_asked)] + args)
         profiling.sync(device)
         train_s = time.perf_counter() - t0
         launches = sub.control_step_packed.launches
@@ -1142,41 +1182,44 @@ def train(device):
         train_tracker.make_test_fn = make_test_fn
 
     steps = PPOConfig().steps_per_iter
-    samples = TRAIN_ITERS * steps * NUM_ENVS
-    if [it["launches"] for it in iters] != [steps] * TRAIN_ITERS:
-        raise AssertionError(f"control-step launches per train_iter "
+    samples = iters_asked * steps * NUM_ENVS
+    if [it["launches"] for it in iters] != [steps] * iters_asked:
+        raise AssertionError(f"{what}: control-step launches per train_iter "
                              f"{[it['launches'] for it in iters]}, expected "
                              f"{steps} each")
     if len(tests) != 1 or tests[0]["launches"] != tests[0]["steps"]:
-        raise AssertionError(f"test rollouts {tests}: expected one, with one "
-                             f"launch per step")
+        raise AssertionError(f"{what}: test rollouts {tests}: expected one, "
+                             f"with one launch per step")
     if launches != samples // NUM_ENVS + tests[0]["steps"]:
-        raise AssertionError(f"{launches} launches in the whole run")
+        raise AssertionError(f"{what}: {launches} launches in the whole run")
     agent = iters[-1]["agent"]
     for i, it in enumerate(iters):
         m = it["metrics"]
         for name in ("actor_loss", "critic_loss", "bound_loss", "mean_reward"):
             if not torch.isfinite(getattr(m, name)).all():
-                raise AssertionError(f"iteration {i + 1}: {name} not finite")
+                raise AssertionError(f"{what}: iteration {i + 1}: {name} not "
+                                     f"finite")
     moved = {}
     for k, p in agent.net.named_parameters():
         if not torch.isfinite(p).all():
-            raise AssertionError(f"parameter {k} is not finite")
+            raise AssertionError(f"{what}: parameter {k} is not finite")
         moved[k] = (p.detach() - start[k]).abs().max().item()
     if min(moved.values()) <= 0.0:
-        raise AssertionError(f"parameters did not move: {moved}")
+        raise AssertionError(f"{what}: parameters did not move: {moved}")
     if float(state.sample_count) != samples:
-        raise AssertionError(f"sample_count {float(state.sample_count)}, "
-                             f"expected {samples}")
+        raise AssertionError(f"{what}: sample_count "
+                             f"{float(state.sample_count)}, expected "
+                             f"{samples}")
     if float(state.obs_norm.count) != samples:
-        raise AssertionError(f"normalizer count {float(state.obs_norm.count)}"
-                             f", expected {samples}")
-    if ckpt_lib.all_steps(str(tracker / "checkpoints")) != [TRAIN_ITERS]:
-        raise AssertionError("no checkpoint at step "
-                             f"{TRAIN_ITERS} in {tracker / 'checkpoints'}")
+        raise AssertionError(f"{what}: normalizer count "
+                             f"{float(state.obs_norm.count)}, expected "
+                             f"{samples}")
+    if ckpt_lib.all_steps(str(tracker / "checkpoints")) != [iters_asked]:
+        raise AssertionError(f"{what}: no checkpoint at step {iters_asked} "
+                             f"in {tracker / 'checkpoints'}")
     return dict(iters=iters, test=tests[0], launches=launches,
-                dataset=dataset, tracker=str(tracker), dataset_s=dataset_s,
-                train_s=train_s, obs_dim=agent.env.obs_dim,
+                tracker=str(tracker), train_s=train_s, state=state,
+                obs_dim=agent.env.obs_dim,
                 log_rate=log_samples_per_sec(tracker), moved=moved,
                 peak_gb=peak_gb)
 
@@ -1197,11 +1240,14 @@ def log_samples_per_sec(tracker):
 def record_and_eval(t, device):
     """Phase 6: record (one env per clip, restored from phase 5's
     checkpoint) and eval --diagnostics, through the CLI."""
+    config = WORK / "record.yaml"
+    config.write_text(yaml.safe_dump(dict(
+        start_fractions=list(RECORD_FRACTIONS))))
     sub.control_step_packed.launches = 0
     t0 = time.perf_counter()
     results = cli.main(["record", "--dataset", t["dataset"], "--tracker_dir",
                         t["tracker"], "--out_dir", str(WORK / "recorded"),
-                        "--device", device.type])
+                        "--config", str(config), "--device", device.type])
     profiling.sync(device)
     record_s = time.perf_counter() - t0
     record_launches = sub.control_step_packed.launches
@@ -1215,7 +1261,8 @@ def record_and_eval(t, device):
     lib = ml.load_motion_lib(humanoid_spec().build(device="cpu"),
                              dataset_files(t["dataset"]), device="cpu")
     per_round = record.round_steps(lib, record.RecordConfig().max_steps)
-    if record_launches % per_round != 0 or record_launches == 0:
+    if (record_launches % per_round != 0 or record_launches == 0
+            or record_launches > len(RECORD_FRACTIONS) * per_round):
         raise AssertionError(f"record launched the kernel {record_launches} "
                              f"times, not a whole number of {per_round}-step "
                              f"rounds")
@@ -1589,7 +1636,8 @@ def kin_gen_probes(device):
             setattr(obj, name, orig)
 
 
-def run_kin_gen(t, device, name, motions, terrains_per_batch, seconds):
+def run_kin_gen(t, device, name, motions, terrains_per_batch, seconds,
+                opt_iters):
     """One kin_gen through the CLI from phase 7's checkpoint on phase 5's
     dataset at KinGenConfig() width, the keep thresholds at infinity."""
     out = WORK / "gen" / name
@@ -1599,7 +1647,7 @@ def run_kin_gen(t, device, name, motions, terrains_per_batch, seconds):
         max_contact_loss=float("inf"), max_pen_loss=float("inf"),
         max_total_loss=float("inf"), terrains_per_batch=terrains_per_batch,
         path_cfg=dict(max_seconds=seconds),
-        opt_cfg=dict(iters=KIN_OPT_ITERS))))
+        opt_cfg=dict(iters=opt_iters))))
     sub.control_step_packed.launches = 0
     with kin_gen_probes(device) as rec:
         t0 = time.perf_counter()
@@ -1679,33 +1727,46 @@ def chain_stages(t, device, clips):
                 and o["after"] <= o["before"]):
             raise AssertionError(f"optimize/augment loss {o['before']} -> "
                                  f"{o['after']}")
-    configs = cli.main(["setup_iter", "--root", str(WORK / "parc"), "--iter",
+    configs = cli.main(["setup_iter", "--root", str(ITER_ROOT), "--iter",
                         "0"])
     for name, path in configs.items():
         with open(path) as f:
             if yaml.safe_load(f).get("device") != str(device):
                 raise AssertionError(f"setup_iter {name}: {path}")
-    saved = {}
-    for p in glob.glob(str(WORK / "gen" / "*" / "*.npz")):
-        c = md.load_motion_data(p)
-        saved[str(Path(p).resolve())] = (c.frames, c.contacts, c.terrain.hf)
+    saved = {p: clip_arrays(p)
+             for p in glob.glob(str(WORK / "gen" / "*" / "*.npz"))}
     t0 = time.perf_counter()
     cli.main(["create_dataset", "--motions_dir", str(WORK / "gen"), "--out",
               str(WORK / "gen.yaml"), "--config", str(config)])
     out["dataset_s"] = time.perf_counter() - t0
-    files = [str(Path(f).resolve()) for f in dataset_files(
-        str(WORK / "gen.yaml"))]
-    if sorted(files) != sorted(saved):
-        raise AssertionError(f"create_dataset listed {len(files)} of "
-                             f"{len(saved)} clips")
-    for f in files:
-        c = md.load_motion_data(f)
-        for a, b in zip((c.frames, c.contacts, c.terrain.hf), saved[f]):
-            if not np.array_equal(a, b):
-                raise AssertionError(f"{f} reloads unlike what was saved")
+    files = listed_as_saved(str(WORK / "gen.yaml"), saved, "phase 8c")
     out.update(opt=rec["opt"], clips=len(files), classes=sorted(
         {Path(f).parent.name for f in files}))
     return out
+
+
+def clip_arrays(path):
+    """What a stage saved of a clip: frames, contacts, terrain and its
+    min point."""
+    c = md.load_motion_data(str(path))
+    return c.frames, c.contacts, c.terrain.hf, c.terrain.min_point
+
+
+def listed_as_saved(dataset, saved, what):
+    """The clip files a manifest lists, gated: exactly the clips of
+    ``saved`` ({path: clip_arrays}), each reloading equal to what was
+    saved."""
+    saved = {str(Path(p).resolve()): v for p, v in saved.items()}
+    files = [str(Path(f).resolve()) for f in dataset_files(dataset)]
+    if sorted(files) != sorted(saved):
+        raise AssertionError(f"{what}: create_dataset listed {len(files)} of "
+                             f"{len(saved)} clips")
+    for f in files:
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(clip_arrays(f), saved[f])):
+            raise AssertionError(f"{what}: {f} reloads unlike what was "
+                                 f"saved")
+    return files
 
 
 @contextlib.contextmanager
@@ -1869,9 +1930,10 @@ def kin_gen_phase(t, device, smi):
     astar_build_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(device)
     a = run_kin_gen(t, device, "kin", KIN_MOTIONS, KIN_TERRAINS_PER_BATCH,
-                    KIN_SECONDS)
+                    KIN_SECONDS, KIN_OPT_ITERS)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    b = run_kin_gen(t, device, "kin_seq", 1, 1, KIN_SEQ_SECONDS)
+    b = run_kin_gen(t, device, "kin_seq", 1, 1, KIN_SEQ_SECONDS,
+                    KIN_SEQ_OPT_ITERS)
     for (phase, mode), r in ((("8a", "batched"), a),
                              (("8b", "sequential"), b)):
         gen_s = r["s"] - sum(o["s"] for o in r["opt"])
@@ -3806,6 +3868,407 @@ def viewer_phase(k8, t, device, smi):
                 check=c)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: one PARC iteration's hand-off (kin-gen's clips -> the tracker)
+# ---------------------------------------------------------------------------
+
+ITER_TRAIN_ITERS, ITER_TEST_STEPS = 2, 100  # 13b, 13d's eval
+WALL_EDGE = 1e-4  # 13c: cells from a grid line where the normal jumps
+
+
+def iter_dataset(t, device):
+    """13a: iteration 0's motions+gen.yaml: phase 5's bench clips and every
+    clip of phase 8 copied into one motions directory (a class a stage),
+    create_dataset over it (the keep thresholds at infinity, as in 8c);
+    every listed clip reloads equal to what its stage saved, and the motion
+    library stacks the terrains one slot a clip."""
+    base = ITER_ROOT / "iter_0"
+    motions = base / "motions+gen"
+    shutil.rmtree(motions, ignore_errors=True)
+    sources = [(Path(f), "bench") for f in dataset_files(t["dataset"])] + [
+        (Path(f), Path(f).parent.name)
+        for f in sorted(glob.glob(str(WORK / "gen" / "*" / "*.npz")))]
+    saved = {}
+    for src, cls in sources:
+        dst = motions / cls / src.name
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src, dst)
+        saved[dst] = clip_arrays(src)
+    config = WORK / "keep_all.yaml"
+    config.write_text(yaml.safe_dump(dict(
+        max_contact_loss=float("inf"), max_pen_loss=float("inf"),
+        max_total_loss=float("inf"))))
+    dataset = base / "motions+gen.yaml"
+    t0 = time.perf_counter()
+    cli.main(["create_dataset", "--motions_dir", str(motions), "--out",
+              str(dataset), "--config", str(config), "--device", device.type])
+    dataset_s = time.perf_counter() - t0
+    files = listed_as_saved(str(dataset), saved, "phase 13a")
+    lib = dataset_lib.load_dataset(humanoid_spec().build(device="cpu"),
+                                   str(dataset), device="cpu")
+    if lib.terrain_hf.shape[0] != len(files):
+        raise AssertionError(f"phase 13a: {lib.terrain_hf.shape[0]} terrain "
+                             f"slots for {len(files)} clips")
+    for k, f in enumerate(files):
+        _, _, clip_hf, min_point = clip_arrays(f)
+        h, w = clip_hf.shape
+        if not (np.array_equal(lib.terrain_hf[k, :h, :w].numpy(), clip_hf)
+                and np.array_equal(lib.terrain_min_point[k].numpy(),
+                                   np.asarray(min_point[:2], np.float32))):
+            raise AssertionError(f"phase 13a: slot {k} of the terrain stack "
+                                 f"is not {f}'s terrain")
+    hf = lib.terrain_hf
+    boxes = int((hf.amax((1, 2)) > hf.amin((1, 2))).sum())
+    return dict(clips=len(files), boxes=boxes, stack=tuple(hf.shape),
+                dataset_s=dataset_s,
+                classes=sorted({Path(f).parent.name for f in files}))
+
+
+def wall_edge_points(model, lib, sim, ids):
+    """Contact points of ``sim`` (a row an env, ``ids`` its terrain slots)
+    whose cell coordinate lies within WALL_EDGE cell of a grid line where
+    the heightfield bends (the bilinear normal differs on its two sides:
+    a box wall beside it), and of any grid line: two (n,) counts."""
+    bidx = model.contact_point_body
+    pos = sim.body_pos[:, bidx]
+    x = pos + rot.quat_rotate(sim.body_rot[:, bidx],
+                              model.contact_point_offset.expand(pos.shape))
+    uv = (x[..., :2] - lib.terrain_min_point[ids][:, None]) / lib.terrain_dxdy
+    hf = lib.terrain_hf[ids]
+    dims = hf.shape[-2:]
+    row = torch.arange(len(ids), device=hf.device)[:, None]
+    near_any = torch.zeros(uv.shape[:2], dtype=torch.bool, device=hf.device)
+    near_wall = torch.zeros_like(near_any)
+    for a in (0, 1):
+        c, o = uv[..., a], uv[..., 1 - a].clamp(0, dims[1 - a] - 1)
+        k = torch.round(c)
+        near = ((c - k).abs() < WALL_EDGE) & (k >= 1) & (k <= dims[a] - 2)
+        k = k.long().clamp(1, dims[a] - 2)
+        j0 = torch.floor(o).long().clamp(max=dims[1 - a] - 2)
+
+        def h(i, j):
+            return hf[row, i, j] if a == 0 else hf[row, j, i]
+        bend = torch.zeros_like(near)
+        for j in (j0, j0 + 1):
+            bend |= (h(k + 1, j) - 2 * h(k, j) + h(k - 1, j)).abs() > 1e-6
+        near_any |= near
+        near_wall |= near & bend
+    return near_wall.sum(1).cpu(), near_any.sum(1).cpu()
+
+
+@torch.no_grad()
+def iter_kernel_check(b, device):
+    """13c: from (b)'s env as training left it, SETTLE control steps with
+    the deterministic actor, then one control step through the kernel and
+    the plain version, judged as in phase 3; the box-terrain rows in
+    contact, and the contact points at a grid line beside a wall."""
+    agent, lib, state = b["iters"][-1]["agent"], b["iters"][-1]["lib"], \
+        b["state"]
+    env, es = agent.env, state.env_state
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(0)
+    for _ in range(SETTLE):
+        es = env.step(lib, es, agent.act(state, es.obs), generator=g)
+    hf = lib.terrain_hf
+    box_slot = hf.amax((1, 2)) > hf.amin((1, 2))
+    touching = torch.linalg.vector_norm(es.sim.contact_forces, dim=-1) > 0
+    box_rows = box_slot[es.motion_ids] & touching.any(1)
+    # a foot pressing a cell off its slot's median height: a box's top or
+    # a pit's floor
+    feet = torch.tensor([env.model.body_names.index(f"{side}_foot")
+                         for side in ("right", "left")], device=device)
+    ids = es.motion_ids
+    cell = torch.round((es.sim.body_pos[:, feet, :2]
+                        - lib.terrain_min_point[ids][:, None])
+                       / lib.terrain_dxdy).long()
+    cell[..., 0].clamp_(0, hf.shape[1] - 1)
+    cell[..., 1].clamp_(0, hf.shape[2] - 1)
+    under = hf[ids[:, None], cell[..., 0], cell[..., 1]]
+    median = hf.flatten(1).median(1).values[ids][:, None]
+    on_box = (((under - median).abs() > 0.05) & touching[:, feet]).any(1)
+    if not box_rows.any():
+        raise AssertionError("phase 13c: no row of a box-terrain slot in "
+                             "contact")
+    walls = wall_edge_points(env.model, lib, es.sim, ids)
+    r = step_vs_plain(env.model, env, lib, es, agent.act(state, es.obs))
+    r.update(envs=es.obs.shape[0], box_rows=int(box_rows.sum()),
+             on_box=int(on_box.sum()), box_slots=int(box_slot.sum()),
+             slots=hf.shape[0], walls=walls,
+             box_slot=box_slot[ids].tolist(),
+             points=ids.numel() * env.model.contact_point_body.numel(),
+             s=time.perf_counter() - t0)
+    return r
+
+
+def iter_record_eval(base, device):
+    """13d: record (one env a clip, one start fraction) and eval
+    --diagnostics through iteration 0's record.yaml, restored from (b)'s
+    checkpoint."""
+    config = base / "record.yaml"
+    cfg = yaml.safe_load(config.read_text())
+    cfg["start_fractions"] = [0.0]  # the run-length cut (6 by default)
+    config.write_text(yaml.safe_dump(cfg))
+    sub.control_step_packed.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    results = cli.main(["record", "--config", str(config)])
+    profiling.sync(device)
+    record_s = time.perf_counter() - t0
+    record_launches = sub.control_step_packed.launches
+    files = dataset_files(cfg["dataset"])
+    lib = ml.load_motion_lib(humanoid_spec().build(device="cpu"), files,
+                             device="cpu")
+    per_round = record.round_steps(lib, record.RecordConfig().max_steps)
+    if len(results) != len(files) or record_launches != per_round:
+        raise AssertionError(f"phase 13d: record rolled {len(results)} "
+                             f"clips of {len(files)} and launched the "
+                             f"kernel {record_launches} times, not one "
+                             f"{per_round}-step round")
+    for k, c in enumerate(results):
+        if c is None:
+            continue
+        src = md.load_motion_data(files[k]).terrain
+        h, w = src.hf.shape
+        if (c.frames.ndim != 2 or c.frames.shape[1] != 34
+                or not np.isfinite(c.frames).all()
+                or not np.isfinite(c.contacts).all()):
+            raise AssertionError(f"phase 13d: recorded clip {k}: frames "
+                                 f"{c.frames.shape}, not finite (T, 34)")
+        if not (np.array_equal(c.terrain.hf[:h, :w], src.hf)
+                and np.allclose(c.terrain.min_point, src.min_point[:2],
+                                rtol=0, atol=0)):
+            raise AssertionError(f"phase 13d: recorded clip {k} does not "
+                                 f"carry {files[k]}'s terrain")
+    sub.control_step_packed.launches = 0
+    t0 = time.perf_counter()
+    test, report = cli.main(["eval", "--config", str(config), "--num_envs",
+                             str(EVAL_ENVS), "--test_steps",
+                             str(ITER_TEST_STEPS), "--diagnostics"])
+    profiling.sync(device)
+    eval_s = time.perf_counter() - t0
+    eval_launches = sub.control_step_packed.launches
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if eval_launches != int(test["test_steps"]):
+        raise AssertionError(f"phase 13d: eval {eval_launches} launches over "
+                             f"{int(test['test_steps'])} steps")
+    if not all(torch.isfinite(v).all() for v in test.values()):
+        raise AssertionError("phase 13d: eval statistics not finite")
+    weights, acts = report["weights"], report["activations"]
+    names = ({f"params/{net}_trunk/Dense_{i}" for net in ("actor", "critic")
+              for i in range(3)}
+             | {"params/actor_head", "params/critic_head"})
+    if set(weights) != names or not {n[len("params/"):] for n in names} \
+            <= set(acts):
+        raise AssertionError(f"phase 13d: diagnostics rows {sorted(weights)}"
+                             f", {sorted(acts)}: not the JAX package's names")
+    recorded = [r for r in results if r is not None]
+    return dict(recorded=len(recorded), motions=len(results),
+                record_s=record_s, record_launches=record_launches,
+                per_round=per_round, eval_s=eval_s,
+                eval_launches=eval_launches,
+                eval_steps=int(test["test_steps"]),
+                test_reward=float(test["mean_reward"]),
+                rows=(len(weights), len(acts)), peak_gb=peak_gb)
+
+
+def tree_diff(got, want, path=""):
+    """The paths where two checkpoint trees (nested dicts of tensors and
+    numbers) differ, compared bit for bit on the CPU; the generator's
+    stream is left out."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [path or "/"]
+        return sum((tree_diff(got[k], want[k], f"{path}/{k}") for k in want
+                    if k != "generator"), [])
+    if isinstance(want, torch.Tensor):
+        return [] if torch.equal(got.cpu(), want.cpu()) else [path]
+    return [] if got == want else [path]
+
+
+def iter_mdm(d, mdm_dir, device):
+    """13e: setup_iter --iter 1, iteration 1's create_dataset where 13d
+    recorded a clip, and train_mdm warm-started (--init_from) from phase
+    7's run for one epoch; train_mdm.train is wrapped to read the state it
+    starts from. Then the same call again, which resumes from its own
+    checkpoint and ignores --init_from."""
+    from parc_torch.pipeline import train_mdm as train_mdm_lib
+    configs = cli.main(["setup_iter", "--root", str(ITER_ROOT), "--iter",
+                        "1"])
+    for name, path in configs.items():
+        if yaml.safe_load(Path(path).read_text()).get("device") != \
+                str(device):
+            raise AssertionError(f"phase 13e: setup_iter {name}: {path}")
+    base = ITER_ROOT / "iter_0"
+    extra, dataset_s = [], None
+    if d["recorded"]:
+        t0 = time.perf_counter()
+        cli.main(["create_dataset", "--config",
+                  str(base / "create_dataset.yaml")])
+        dataset_s = time.perf_counter() - t0
+        dataset = yaml.safe_load(
+            (base / "create_dataset.yaml").read_text())["out"]
+        if len(dataset_files(dataset)) != d["recorded"]:
+            raise AssertionError(f"phase 13e: iteration 1's dataset lists "
+                                 f"{len(dataset_files(dataset))} clips of "
+                                 f"{d['recorded']} recorded")
+    else:
+        dataset = str(base / "motions+gen.yaml")
+        extra = ["--dataset", dataset]
+    want = ckpt_lib.restore(str(mdm_dir / "checkpoints"))
+    started, train = [], train_mdm_lib.train
+
+    def spy(mdm, lib, cfg, state=None, **kw):
+        started.append((mdm, None if state is None
+                        else mdm.persistent_state(state)))
+        return train(mdm, lib, cfg, state=state, **kw)
+    argv = ["train_mdm", "--config", str(configs["train_mdm"]),
+            "--init_from", str(mdm_dir), "--max_epochs", "1"] + extra
+    out = Path(yaml.safe_load(Path(configs["train_mdm"]).read_text())
+               ["out_dir"])
+    train_mdm_lib.train = spy
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state = cli.main(argv)
+        profiling.sync(device)
+        train_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        t0 = time.perf_counter()
+        again = cli.main(argv)
+        profiling.sync(device)
+        resume_s = time.perf_counter() - t0
+    finally:
+        train_mdm_lib.train = train
+    first = started[0][1]
+    if first is None or tree_diff(first, want):
+        raise AssertionError(
+            "phase 13e: the state train_mdm started from differs from "
+            "phase 7's checkpoint in "
+            + ("everything (no --init_from state)" if first is None
+               else str(tree_diff(first, want))))
+    iters = train_mdm_lib.MDMTrainerConfig().iters_per_epoch
+    with open(out / "log.tsv") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    losses = [float(r["Loss"]) for r in rows]
+    if len(rows) != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 13e: train_mdm logged {len(rows)} "
+                             f"epochs, losses {losses}")
+    if state.step != int(want["step"]) + iters:
+        raise AssertionError(f"phase 13e: warm-started MDM at step "
+                             f"{state.step}, expected {int(want['step'])} + "
+                             f"{iters}")
+    for net in (state.net, state.ema_net):
+        for k, p in net.named_parameters():
+            if not torch.isfinite(p).all():
+                raise AssertionError(f"phase 13e: MDM parameter {k} is not "
+                                     f"finite")
+    own = ckpt_lib.restore(str(out / "checkpoints"))
+    if ckpt_lib.all_steps(str(out / "checkpoints")) != [1]:
+        raise AssertionError(f"phase 13e: checkpoints "
+                             f"{ckpt_lib.all_steps(str(out / 'checkpoints'))}"
+                             f" in {out}, expected epoch 1")
+    mdm, second = started[1]
+    if second is not None or again.step != state.step or \
+            tree_diff(mdm.persistent_state(again), own):
+        raise AssertionError("phase 13e: the second train_mdm did not "
+                             "resume from its own checkpoint (it took "
+                             "--init_from, or trained on)")
+    moved = max((state.net.get_parameter(k).detach().cpu() - v).abs().max()
+                .item() for k, v in want["params"].items())
+    return dict(dataset_s=dataset_s, train_s=train_s,
+                resume_s=resume_s, loss=losses[0], step=state.step,
+                start_step=int(want["step"]), iters=iters, moved=moved,
+                peak_gb=peak_gb, recorded=d["recorded"])
+
+
+def parc_iter_phase(t, device, smi):
+    """Phase 13: one PARC iteration's hand-off, from phases 5, 7 and 8's
+    outputs, through the CLI and the configs setup_iter wrote in 8c."""
+    t0 = time.perf_counter()
+    a = iter_dataset(t, device)
+    print(f"phase 13a: iter_0/motions+gen.yaml: create_dataset over phase "
+          f"5's 3 bench clips and phase 8's clips ({', '.join(a['classes'])}"
+          f") in {a['dataset_s']:.1f} s: {a['clips']} clips listed, each "
+          f"reloaded equal to what its stage saved; terrains stacked "
+          f"{a['stack'][0]} x {a['stack'][1]} x {a['stack'][2]}, one slot a "
+          f"clip, {a['boxes']} of them not flat | {smi}")
+    base = ITER_ROOT / "iter_0"
+    b = counted_train(["--config", str(base / "train_tracker.yaml"),
+                       "--test_steps", str(ITER_TEST_STEPS)],
+                      base / "tracker", ITER_TRAIN_ITERS, device,
+                      "phase 13b")
+    for i, it in enumerate(b["iters"]):
+        print(f"phase 13b: iteration {i + 1}: {it['wall_s']:.3f} s, "
+              f"{PPOConfig().steps_per_iter * NUM_ENVS / it['wall_s']:.1f} "
+              f"samples/s (rollout {it.get('rollout', float('nan')):.1f} ms, "
+              f"update {it.get('update', float('nan')):.1f} ms), "
+              f"control-step launches {it['launches']} | {smi}")
+    m = b["iters"][-1]["metrics"]
+    print(f"phase 13b: train_tracker --config iter_0/train_tracker.yaml "
+          f"through the CLI on {a['clips']} clips: {NUM_ENVS} envs x "
+          f"{ITER_TRAIN_ITERS} iterations of PPOConfig(), {b['train_s']:.1f} "
+          f"s in all; the log's Samples_Per_Sec "
+          f"{', '.join(f'{r:.1f}' for r in b['log_rate'])}; test rollout "
+          f"{b['test']['steps']} steps (cut to {ITER_TEST_STEPS}) in "
+          f"{b['test']['wall_s']:.2f} s ({b['test']['launches']} launches); "
+          f"last iteration: actor {m.actor_loss.item():.4g}, critic "
+          f"{m.critic_loss.item():.4g}, mean reward "
+          f"{m.mean_reward.item():.4f}; {b['launches']} launches; peak "
+          f"device memory {b['peak_gb']:.2f} GB | {smi}")
+    c = iter_kernel_check(b, device)
+    tol_s, tol_c, spared = judge(c, "phase 13c parc_iter control step")
+    wall, edge = c["walls"]
+    spared_boxes = [k for k in spared if c["box_slot"][k]]
+    print(f"phase 13c: (b)'s env ({c['envs']} envs over {c['slots']} "
+          f"terrain slots, {c['box_slots']} not flat; after {SETTLE} steps, "
+          f"{c['s']:.1f} s with the step's four evaluations): "
+          f"{c['box_rows']} rows of box-terrain slots in contact, "
+          f"{c['on_box']} with a foot on a box's top or a pit's floor; "
+          f"{int(wall.sum())} of {c['points']} contact points within "
+          f"{WALL_EDGE} cell of a grid line beside a wall, in "
+          f"{int((wall > 0).sum())} envs ({int(edge.sum())} of any grid "
+          f"line); kernel vs plain control step "
+          + ", ".join(f"{f} {v:.1e}" for f, v in c["step_err"].items())
+          + f" (judge's limits state {tol_s:.1e}, contact {tol_c:.1e}; "
+          f"{len(spared)} env(s) excused or taken out, "
+          f"{len(spared_boxes)} of them on a box-terrain slot, with "
+          f"{sum(int(wall[k]) for k in spared)} contact points at a grid "
+          f"line beside a wall); max|contact| {c['max_contact']:.1f} N "
+          f"| {smi}")
+    d = iter_record_eval(base, device)
+    print(f"phase 13d: record --config iter_0/record.yaml (one start "
+          f"fraction) from (b)'s checkpoint: recorded {d['recorded']}/"
+          f"{d['motions']} in {d['record_s']:.1f} s, {d['record_launches']} "
+          f"launches (one {d['per_round']}-step round, "
+          f"{d['record_launches'] / d['record_s']:.1f} steps/s); eval "
+          f"--diagnostics at {EVAL_ENVS} envs: {d['eval_steps']} steps in "
+          f"{d['eval_s']:.1f} s, {d['eval_launches']} launches, test reward "
+          f"{d['test_reward']:.4f}, {d['rows'][0]} weight rows "
+          f"(params/...) and {d['rows'][1]} activation rows under the JAX "
+          f"package's names; peak device memory {d['peak_gb']:.2f} GB "
+          f"| {smi}")
+    e = iter_mdm(d, WORK / "mdm", device)
+    windows = e["iters"] * MDMConfig().batch_size
+    print(f"phase 13e: setup_iter --iter 1; "
+          + (f"create_dataset --config iter_0/create_dataset.yaml over the "
+             f"{e['recorded']} recorded clip(s) in {e['dataset_s']:.1f} s; "
+             if e["recorded"] else
+             "13d recorded no clip, so no iteration-1 dataset: train_mdm "
+             "runs on iter_0/motions+gen.yaml; ")
+          + f"train_mdm --config iter_1/train_mdm.yaml --init_from phase "
+          f"7's run: started from phase 7's checkpoint bit for bit (step "
+          f"{e['start_step']}), 1 epoch of {e['iters']} steps x "
+          f"{MDMConfig().batch_size} windows in {e['train_s']:.1f} s "
+          f"({windows / e['train_s']:.1f} windows/s, set-up included), loss "
+          f"{e['loss']:.4f}, step {e['step']}, largest parameter move "
+          f"{e['moved']:.3e}; peak device memory {e['peak_gb']:.2f} GB; the "
+          f"same call again resumed from iter_1/mdm's checkpoint, "
+          f"--init_from ignored, in {e['resume_s']:.1f} s | {smi}")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=b["launches"] + d["record_launches"]
+                + d["eval_launches"])
+
+
 def dp_worker(argv):
     """The ranks of phase 10, started by torchrun (``--dp-worker``)."""
     if argv[0] == "a":
@@ -3936,6 +4399,7 @@ def main():
     p10 = dp_phase(t, p9, device, smi)
     p11 = tools_phase(t, k8, device, smi)
     p12 = viewer_phase(k8, t, device, smi)
+    p13 = parc_iter_phase(t, device, smi)
 
     print(json.dumps({"kernels": [{
         "name": "control_step", "route": "cuda",
@@ -3955,6 +4419,7 @@ def main():
                              "ddp": p10["launches"],
                              "fidelity": p11["launches"],
                              "studio": p12["launches"],
+                             "parc_iter": p13["launches"],
                              "quadruped": q["launches"]},
         "quadruped": {"ms": q["ms"], "plain_ms": q["plain_ms"],
                       "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],

@@ -6,8 +6,11 @@ the spectral mass), average weight magnitude, and dormant-unit counts from
 activation statistics over evaluation rollouts. Used to monitor plasticity
 loss during long PARC iterations.
 
-Layers are named as the JAX package names them (``actor_trunk/Dense_0``,
-``actor_head``, ...), so the two reports line up.
+Rows are named as the JAX package names them, so the two reports line up:
+a weight row by its path in the agent's parameter tree, which holds the
+top-level ``"params"`` key (``params/actor_trunk/Dense_0``, ...,
+``params/critic_head``); an activation row by its module path
+(``actor_trunk/Dense_0``, ``actor_trunk``, ...).
 """
 
 from __future__ import annotations
@@ -46,13 +49,14 @@ def _layer_names(net: nn.Module) -> Dict[str, nn.Module]:
 
 
 def weight_diagnostics(net: nn.Module) -> Dict[str, Dict[str, float]]:
-    """Stable rank + mean |w| for every Linear kernel of ``net``."""
+    """Stable rank + mean |w| for every Linear kernel of ``net``, a row
+    ``params/<module path>``."""
     out = {}
     for name, mod in _layer_names(net).items():
         if not isinstance(mod, nn.Linear):
             continue
         w = mod.weight.detach().cpu().numpy().T  # (in, out), as flax holds it
-        out[name] = {
+        out[f"params/{name}"] = {
             "stable_rank": stable_rank(w),
             "max_rank": int(min(w.shape)),
             "mean_abs_weight": float(np.mean(np.abs(w))),

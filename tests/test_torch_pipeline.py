@@ -142,7 +142,7 @@ def test_cli_chain(tmp_path, capsys):
                             + common)
     assert int(test["test_steps"]) <= 4
     assert set(report) == {"weights", "activations"}
-    assert report["weights"]["actor_trunk/Dense_0"]["max_rank"] == 512
+    assert report["weights"]["params/actor_trunk/Dense_0"]["max_rank"] == 512
     out = capsys.readouterr().out
     assert "recorded" in out and "network diagnostics" in out
     # the parkour and mgdm envs train through this stage too
