@@ -1,0 +1,1 @@
+"""Frozen plain copy (see reference/__init__.py)."""
