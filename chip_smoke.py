@@ -379,7 +379,9 @@ def cuda_ms(fn, reps: int) -> float:
 def device_busy_ms(fn, reps: int, kernel: str = ""):
     """Mean device time per fn() call from a torch.profiler trace: of every
     kernel (the device's busy time), or of the kernels whose name holds
-    ``kernel``; None if the trace shows no such device time."""
+    ``kernel``; None if the trace shows no such device time. A span's copy
+    on the device's timeline (the program's ``parc.*`` spans, PyTorch's
+    ``Optimizer.*``) is not device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -390,7 +392,8 @@ def device_busy_ms(fn, reps: int, kernel: str = ""):
             fn()
         torch.cuda.synchronize()
     busy_us = sum(e.device_time_total for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and kernel in e.name)
+                  if e.device_type == DeviceType.CUDA and kernel in e.name
+                  and not e.is_user_annotation)
     return busy_us / 1e3 / reps if busy_us > 0 else None
 
 

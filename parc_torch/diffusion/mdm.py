@@ -36,6 +36,7 @@ from parc_torch.diffusion import sampler as sampler_lib
 from parc_torch.diffusion import schedules
 from parc_torch.diffusion.transformer import MDMTransformer
 from parc_torch.utils import rotation as rot
+from parc_torch.utils.profiling import annotate
 
 _KEEP_ON_OOD = ("hf_collision", "target")
 
@@ -417,27 +418,33 @@ class MDM:
         ``state.generator``, and the dropout masks always do."""
         cfg = self.cfg
         g = state.generator
-        if batch_draws is None:
-            batch_draws = sampler_lib.draw_batch(self.scfg, lib, g,
-                                                 cfg.batch_size)
-        with torch.no_grad():
-            batch = sampler_lib.batch_from_draws(self.model, self.scfg, lib,
-                                                 batch_draws)
-        if loss_draws is None:
-            loss_draws = self.draw_loss(g, batch.frames.shape[0])
-        state.optimizer.zero_grad(set_to_none=True)
-        total, losses = self.loss_fn(state.net, state, batch, loss_draws,
-                                     dropout_generator=g)
-        total.backward()
-        self._clip_grads(state.net)
-        state.optimizer.step()
-        # EMA after warmup (decay 0 before ema_start copies the params)
-        decay = cfg.ema_decay if state.step >= cfg.ema_start else 0.0
-        with torch.no_grad():
-            ema = list(state.ema_net.parameters())
-            torch._foreach_mul_(ema, decay)
-            torch._foreach_add_(ema, list(state.net.parameters()),
-                                alpha=1.0 - decay)
+        with annotate("parc.mdm.batch"):
+            if batch_draws is None:
+                batch_draws = sampler_lib.draw_batch(self.scfg, lib, g,
+                                                     cfg.batch_size)
+            with torch.no_grad():
+                batch = sampler_lib.batch_from_draws(self.model, self.scfg,
+                                                     lib, batch_draws)
+            if loss_draws is None:
+                loss_draws = self.draw_loss(g, batch.frames.shape[0])
+        with annotate("parc.mdm.forward"):
+            total, losses = self.loss_fn(state.net, state, batch, loss_draws,
+                                         dropout_generator=g)
+        with annotate("parc.mdm.backward"):
+            # the last step's gradients are dropped where this one's
+            # accumulate (the forward reads none)
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with annotate("parc.mdm.update"):
+            self._clip_grads(state.net)
+            state.optimizer.step()
+            # EMA after warmup (decay 0 before ema_start copies the params)
+            decay = cfg.ema_decay if state.step >= cfg.ema_start else 0.0
+            with torch.no_grad():
+                ema = list(state.ema_net.parameters())
+                torch._foreach_mul_(ema, decay)
+                torch._foreach_add_(ema, list(state.net.parameters()),
+                                    alpha=1.0 - decay)
         metrics = {"total": total.detach(),
                    **{k: v.detach() for k, v in losses.items()}}
         return state.replace(step=state.step + 1), metrics
@@ -568,15 +575,17 @@ class MDM:
         for idx, t_cur in enumerate(timesteps):
             t_batch = torch.full((b,), int(t_cur), dtype=torch.long,
                                  device=self.device)
-            if strong_hf:
-                from parc_torch.diffusion import guidance as guid_lib
-                x0, _ = guid_lib.hf_guidance_x0(
-                    self, net, state, x, t_batch, prev_std, hf, target_dir,
-                    target_xy, guidance, use_prev_state=use_prev_state)
-            else:
-                x0 = self._denoise(net, state, x, t_batch, prev_std, hf,
-                                   target_dir, guidance_scale,
-                                   cond_cache=cond_cache)
+            with annotate("parc.ddim.denoise"):
+                if strong_hf:
+                    from parc_torch.diffusion import guidance as guid_lib
+                    x0, _ = guid_lib.hf_guidance_x0(
+                        self, net, state, x, t_batch, prev_std, hf,
+                        target_dir, target_xy, guidance,
+                        use_prev_state=use_prev_state)
+                else:
+                    x0 = self._denoise(net, state, x, t_batch, prev_std, hf,
+                                       target_dir, guidance_scale,
+                                       cond_cache=cond_cache)
             x0 = self._post_x0(state, x0, hf, guidance, target_xy,
                                inpaint_frames, inpaint_mask)
             # f32 scalars from the host table, as the JAX package computes

@@ -30,6 +30,7 @@ from parc_torch.envs.base import DoneFlags, EnvConfig, EnvState
 from parc_torch.physics import engine
 from parc_torch.utils import rotation as rot
 from parc_torch.utils import terrain as terrain_lib
+from parc_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -520,51 +521,60 @@ class DeepMimicEnv:
         """
         if reset_pool is None and generator is None:
             raise ValueError("step needs a reset_pool or a generator")
-        cfg = self.cfg
-        sim = self._physics(lib, state, actions)
+        with annotate("parc.env.step"):
+            cfg = self.cfg
+            sim = self._physics(lib, state, actions)
 
-        time = state.time + cfg.control_dt
-        motion_times = state.motion_times + cfg.control_dt
-        state = state.replace(sim=sim, time=time, motion_times=motion_times)
+            time = state.time + cfg.control_dt
+            motion_times = state.motion_times + cfg.control_dt
+            state = state.replace(sim=sim, time=time,
+                                  motion_times=motion_times)
 
-        ref = ml.calc_motion_frame(lib, state.motion_ids, motion_times)
-        ref_body_pos, ref_body_rot = cm.forward_kinematics(
-            self.model, ref.root_pos, ref.root_rot, ref.joint_rot)
+            with annotate("parc.env.reference"):
+                ref = ml.calc_motion_frame(lib, state.motion_ids,
+                                           motion_times)
+                ref_body_pos, ref_body_rot = cm.forward_kinematics(
+                    self.model, ref.root_pos, ref.root_rot, ref.joint_rot)
 
-        reward, comps = self._compute_reward(state, ref, ref_body_pos)
-        done = self._compute_done(lib, state, ref, ref_body_pos)
-        track_err = self._tracking_error(state, ref, ref_body_pos,
-                                         ref_body_rot)
+            with annotate("parc.env.reward"):
+                reward, comps = self._compute_reward(state, ref,
+                                                     ref_body_pos)
+                done = self._compute_done(lib, state, ref, ref_body_pos)
+                track_err = self._tracking_error(state, ref, ref_body_pos,
+                                                 ref_body_rot)
+                is_done = done != DoneFlags.NULL
+                fail_rates = self._fail_rate_ema(lib, state, done)
 
-        is_done = done != DoneFlags.NULL
-        fail_rates = self._fail_rate_ema(lib, state, done)
+            with annotate("parc.env.obs"):
+                obs = self._compute_obs(lib, state)
 
-        obs = self._compute_obs(lib, state)
+            # masked reset of done envs
+            with annotate("parc.env.reset"):
+                n = state.done.shape[0]
+                if reset_pool is not None:
+                    r_sim, r_ids, r_times, r_obs = _pool_take(reset_pool,
+                                                              pool_slot, n)
+                else:
+                    r_ids, r_times, r_sim = self._sample_reset(
+                        lib, generator, n, fail_rates)
+                    r_obs = self._compute_obs(
+                        lib, self._obs_view(r_sim, r_ids, r_times))
 
-        # masked reset of done envs
-        n = state.done.shape[0]
-        if reset_pool is not None:
-            r_sim, r_ids, r_times, r_obs = _pool_take(reset_pool, pool_slot, n)
-        else:
-            r_ids, r_times, r_sim = self._sample_reset(lib, generator, n,
-                                                       fail_rates)
-            r_obs = self._compute_obs(lib, self._obs_view(r_sim, r_ids,
-                                                          r_times))
+                def sel(a, b):
+                    mask = is_done.reshape(is_done.shape
+                                           + (1,) * (a.ndim - 1))
+                    return torch.where(mask, a, b)
 
-        def sel(a, b):
-            mask = is_done.reshape(is_done.shape + (1,) * (a.ndim - 1))
-            return torch.where(mask, a, b)
-
-        # masked select only over the per-env fields; done/reward/stats
-        # report the pre-reset values, and the pre-reset obs is kept for
-        # terminal bootstrapping
-        return state.replace(
-            sim=engine.where_state(is_done, r_sim, state.sim),
-            obs=sel(r_obs, obs),
-            motion_ids=sel(r_ids, state.motion_ids),
-            motion_times=sel(r_times, state.motion_times),
-            start_times=sel(r_times, state.start_times),
-            time=sel(torch.zeros_like(time), time),
-            done=done, reward=reward, terminal_obs=obs,
-            terminal_times=time, fail_rates=fail_rates,
-            reward_components=comps, tracking_error=track_err)
+                # masked select only over the per-env fields;
+                # done/reward/stats report the pre-reset values, and the
+                # pre-reset obs is kept for terminal bootstrapping
+                return state.replace(
+                    sim=engine.where_state(is_done, r_sim, state.sim),
+                    obs=sel(r_obs, obs),
+                    motion_ids=sel(r_ids, state.motion_ids),
+                    motion_times=sel(r_times, state.motion_times),
+                    start_times=sel(r_times, state.start_times),
+                    time=sel(torch.zeros_like(time), time),
+                    done=done, reward=reward, terminal_obs=obs,
+                    terminal_times=time, fail_rates=fail_rates,
+                    reward_components=comps, tracking_error=track_err)

@@ -29,6 +29,7 @@ from parc_torch.learning import normalizer as norm_lib
 from parc_torch.learning import rl_util
 from parc_torch.learning.networks import ActorCritic
 from parc_torch.parallel import mesh
+from parc_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,20 +251,22 @@ class PPOAgent:
         n = es.done.shape[0]
         pool, pool_k = None, cfg.reset_pool_k
         if pool_k > 0 and hasattr(self.env, "build_reset_pool"):
-            pool = self.env.build_reset_pool(lib, g, es.fail_rates, n,
-                                             k=pool_k)
+            with annotate("parc.env.reset_pool"):
+                pool = self.env.build_reset_pool(lib, g, es.fail_rates, n,
+                                                 k=pool_k)
         reset_counts = torch.zeros((n,), dtype=torch.long, device=dev)
         steps = []
         for _ in range(cfg.steps_per_iter):
             obs = es.obs
-            norm_obs = norm_lib.normalize(agent.obs_norm, obs)
-            mean, logstd = self.net.actor(norm_obs)
-            a_rand = dist.sample(g, mean, logstd)
-            rand_mask = (torch.rand(mean.shape[:-1], generator=g, device=dev)
-                         < exp_prob).float()
-            norm_a = torch.where(rand_mask[..., None] > 0, a_rand, mean)
-            logp = dist.log_prob(mean, logstd, norm_a)
-            action = self._action_from_norm(norm_a)
+            with annotate("parc.ppo.act"):
+                norm_obs = norm_lib.normalize(agent.obs_norm, obs)
+                mean, logstd = self.net.actor(norm_obs)
+                a_rand = dist.sample(g, mean, logstd)
+                rand_mask = (torch.rand(mean.shape[:-1], generator=g,
+                                        device=dev) < exp_prob).float()
+                norm_a = torch.where(rand_mask[..., None] > 0, a_rand, mean)
+                logp = dist.log_prob(mean, logstd, norm_a)
+                action = self._action_from_norm(norm_a)
             if pool is not None:
                 es = self.env.step(lib, es, action, reset_pool=pool,
                                    pool_slot=reset_counts % pool_k,

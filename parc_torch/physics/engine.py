@@ -35,6 +35,7 @@ from parc_torch.anim import char_model as cm
 from parc_torch.physics import spatial as sp
 from parc_torch.utils import rotation as rot
 from parc_torch.utils import terrain as terrain_lib
+from parc_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,24 +518,27 @@ def control_step(model: cm.CharModel, params: SimParams,
     from parc_torch.physics import substep as sub
 
     step = sub.control_step_packed if step_fn is None else step_fn
-    lead = state.root_pos.shape[:-1]
-    n = math.prod(lead)
-    J = model.num_bodies
-    flat_state = state if len(lead) == 1 else _reshape_state(state, (n,))
-    act = pd_target_dof.expand(lead + (model.dof_size,)).reshape(n, -1)
-    tidx = (None if terrain_idx is None
-            else terrain_idx.expand(lead).reshape(n).to(torch.int32))
+    with annotate("parc.physics.control_step"):
+        lead = state.root_pos.shape[:-1]
+        n = math.prod(lead)
+        J = model.num_bodies
+        flat_state = state if len(lead) == 1 else _reshape_state(state, (n,))
+        act = pd_target_dof.expand(lead + (model.dof_size,)).reshape(n, -1)
+        tidx = (None if terrain_idx is None
+                else terrain_idx.expand(lead).reshape(n).to(torch.int32))
 
-    if params.control_mode in ("pd_implicit", "pd_exp"):
-        qtar = cm.dof_to_rot(model, act)
-    else:
-        qtar = torch.zeros((n, J - 1, 4), dtype=act.dtype, device=act.device)
-    state_p = sub.pack(sub.state_layout(model), vars(flat_state), n)
-    const_p = sub.pack(sub.const_layout(model), {"act": act, "qtar": qtar}, n)
-    state_p, contact_p = step(model, params, terrain, state_p, const_p, tidx,
-                              sim_steps)
-    out = sub.unpack_state(model, state_p, contact_p)
-    return out if len(lead) == 1 else _reshape_state(out, lead)
+        if params.control_mode in ("pd_implicit", "pd_exp"):
+            qtar = cm.dof_to_rot(model, act)
+        else:
+            qtar = torch.zeros((n, J - 1, 4), dtype=act.dtype,
+                               device=act.device)
+        state_p = sub.pack(sub.state_layout(model), vars(flat_state), n)
+        const_p = sub.pack(sub.const_layout(model),
+                           {"act": act, "qtar": qtar}, n)
+        state_p, contact_p = step(model, params, terrain, state_p, const_p,
+                                  tidx, sim_steps)
+        out = sub.unpack_state(model, state_p, contact_p)
+        return out if len(lead) == 1 else _reshape_state(out, lead)
 
 
 def sim_step(model: cm.CharModel, params: SimParams,

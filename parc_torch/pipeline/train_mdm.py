@@ -31,7 +31,8 @@ class MDMTrainerConfig:
     output_dir: str = "output/mdm"
     use_wandb: bool = False
     # torch.profiler: capture epochs [profile_start, profile_start +
-    # profile_epochs) into <output_dir>/profile/trace.json (Perfetto)
+    # profile_epochs) into <output_dir>/profile/trace.json (Perfetto), with
+    # each train_step's parc.mdm.* spans (utils/profiling.py)
     profile_epochs: int = 0
     profile_start: int = 2
 

@@ -50,7 +50,9 @@ class TrainerConfig:
     output_dir: str = "output/tracker"
     use_wandb: bool = False
     # torch.profiler: capture iterations [profile_start, profile_start +
-    # profile_iters) into <output_dir>/profile/trace.json (Perfetto)
+    # profile_iters) into <output_dir>/profile/trace.json (Perfetto), with
+    # the program's parc.* spans (utils/profiling.py) inside each
+    # "train_iter"
     profile_iters: int = 0
     profile_start: int = 10
     # data parallelism: periodic param-replica desync check (reference:
