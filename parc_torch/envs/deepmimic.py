@@ -4,7 +4,10 @@ The training env of the tracker stage: each env tracks a reference motion
 clip on that clip's own terrain. Stepping, observation, reward,
 termination, the per-motion fail-rate statistics and masked resets are
 batched tensor code over the env dimension; nothing syncs with the host
-inside a step.
+inside a step. A step splits at the physics launch (``_physics``, then
+``_after_physics``, a function of tensors); a step that takes its resets
+from a reset pool on CUDA replays the second part as one CUDA graph
+(envs/step_graph.py).
 
 Each env collides with its own motion's terrain (terrain_idx = motion_id)
 through the stacked per-motion heightfields of the MotionLib.
@@ -26,6 +29,7 @@ from parc_torch.anim import char_model as cm
 from parc_torch.anim import motion_lib as ml
 from parc_torch.envs import obs as obs_mod
 from parc_torch.envs import perception
+from parc_torch.envs import step_graph
 from parc_torch.envs.base import DoneFlags, EnvConfig, EnvState
 from parc_torch.physics import engine
 from parc_torch.utils import rotation as rot
@@ -77,6 +81,13 @@ class DeepMimicEnv:
             device=self.device)
         self.contact_body_ids = tuple(
             names.index(n) for n in cfg.contact_bodies)
+        # bodies allowed to touch the ground, built once: an index with a
+        # Python list in the step would copy it to the device every step
+        allowed = torch.zeros(model.num_bodies, dtype=torch.bool)
+        allowed[list(self.contact_body_ids)] = True
+        self.contact_allowed = allowed.to(self.device)
+        # the post-physics chain of a pooled CUDA step (envs/step_graph.py)
+        self._step_graph: Optional[step_graph.StepGraph] = None
 
         # per-dof error weights from per-joint weights, normalized by the
         # total joint weight
@@ -408,9 +419,7 @@ class DeepMimicEnv:
             failed = torch.zeros(state.done.shape, dtype=torch.bool,
                                  device=self.device)
             if len(self.contact_body_ids) > 0:
-                allowed = torch.zeros(self.model.num_bodies, dtype=torch.bool,
-                                      device=self.device)
-                allowed[list(self.contact_body_ids)] = True
+                allowed = self.contact_allowed
                 masked = torch.where(allowed[None, :, None],
                                      torch.zeros_like(sim.contact_forces),
                                      sim.contact_forces)
@@ -522,59 +531,95 @@ class DeepMimicEnv:
         if reset_pool is None and generator is None:
             raise ValueError("step needs a reset_pool or a generator")
         with annotate("parc.env.step"):
-            cfg = self.cfg
-            sim = self._physics(lib, state, actions)
+            state = state.replace(sim=self._physics(lib, state, actions))
+            return self._post_physics(lib, lib, state, reset_pool, pool_slot,
+                                      generator)
 
-            time = state.time + cfg.control_dt
-            motion_times = state.motion_times + cfg.control_dt
-            state = state.replace(sim=sim, time=time,
-                                  motion_times=motion_times)
+    # state fields the post-physics chain never reads: left out of the
+    # graph's inputs
+    _UNREAD = ("obs", "terminal_obs", "reward", "terminal_times",
+               "reward_components", "tracking_error")
 
-            with annotate("parc.env.reference"):
-                ref = ml.calc_motion_frame(lib, state.motion_ids,
-                                           motion_times)
-                ref_body_pos, ref_body_rot = cm.forward_kinematics(
-                    self.model, ref.root_pos, ref.root_rot, ref.joint_rot)
+    def _post_physics(self, owner, lib: ml.MotionLib, state: EnvState,
+                      reset_pool: Optional[ResetPool],
+                      pool_slot: Optional[torch.Tensor],
+                      generator: Optional[torch.Generator]) -> EnvState:
+        """:meth:`_after_physics`, replayed as one CUDA graph on a pooled
+        CUDA step (envs/step_graph.py; captured again for another
+        ``owner``, the lib the caller passes, or other shapes), else run
+        eagerly: a step that samples its resets with ``generator`` draws
+        inside the chain, and the CPU has no graphs."""
+        if reset_pool is None or not state.sim.root_pos.is_cuda:
+            return self._after_physics(lib, state, reset_pool, pool_slot,
+                                       generator)
+        view = state.replace(**{f: None for f in self._UNREAD})
+        key = (state.done.shape[0], reset_pool.k)
+        graph = self._step_graph
+        if graph is None or not graph.serves(owner, key):
+            self._step_graph = None  # the old graph's memory, freed first
+            graph = self._step_graph = step_graph.StepGraph(
+                owner, key,
+                lambda args, pool: self._after_physics(lib, args[0], pool,
+                                                       args[1], None),
+                (view, pool_slot), reset_pool, hold=lib)
+        return graph((view, pool_slot), reset_pool, like=state)
 
-            with annotate("parc.env.reward"):
-                reward, comps = self._compute_reward(state, ref,
-                                                     ref_body_pos)
-                done = self._compute_done(lib, state, ref, ref_body_pos)
-                track_err = self._tracking_error(state, ref, ref_body_pos,
-                                                 ref_body_rot)
-                is_done = done != DoneFlags.NULL
-                fail_rates = self._fail_rate_ema(lib, state, done)
+    def _after_physics(self, lib: ml.MotionLib, state: EnvState,
+                       reset_pool: Optional[ResetPool],
+                       pool_slot: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator]) -> EnvState:
+        """The step after the physics, a function of tensors: ``state``
+        holds the physics' output in ``sim``; the clocks advance, then
+        reward, done, tracking error, the fail-rate EMA, the observation
+        and the masked reset (from ``reset_pool``, or sampled with
+        ``generator``)."""
+        cfg = self.cfg
+        time = state.time + cfg.control_dt
+        motion_times = state.motion_times + cfg.control_dt
+        state = state.replace(time=time, motion_times=motion_times)
 
-            with annotate("parc.env.obs"):
-                obs = self._compute_obs(lib, state)
+        with annotate("parc.env.reference"):
+            ref = ml.calc_motion_frame(lib, state.motion_ids, motion_times)
+            ref_body_pos, ref_body_rot = cm.forward_kinematics(
+                self.model, ref.root_pos, ref.root_rot, ref.joint_rot)
 
-            # masked reset of done envs
-            with annotate("parc.env.reset"):
-                n = state.done.shape[0]
-                if reset_pool is not None:
-                    r_sim, r_ids, r_times, r_obs = _pool_take(reset_pool,
-                                                              pool_slot, n)
-                else:
-                    r_ids, r_times, r_sim = self._sample_reset(
-                        lib, generator, n, fail_rates)
-                    r_obs = self._compute_obs(
-                        lib, self._obs_view(r_sim, r_ids, r_times))
+        with annotate("parc.env.reward"):
+            reward, comps = self._compute_reward(state, ref, ref_body_pos)
+            done = self._compute_done(lib, state, ref, ref_body_pos)
+            track_err = self._tracking_error(state, ref, ref_body_pos,
+                                             ref_body_rot)
+            is_done = done != DoneFlags.NULL
+            fail_rates = self._fail_rate_ema(lib, state, done)
 
-                def sel(a, b):
-                    mask = is_done.reshape(is_done.shape
-                                           + (1,) * (a.ndim - 1))
-                    return torch.where(mask, a, b)
+        with annotate("parc.env.obs"):
+            obs = self._compute_obs(lib, state)
 
-                # masked select only over the per-env fields;
-                # done/reward/stats report the pre-reset values, and the
-                # pre-reset obs is kept for terminal bootstrapping
-                return state.replace(
-                    sim=engine.where_state(is_done, r_sim, state.sim),
-                    obs=sel(r_obs, obs),
-                    motion_ids=sel(r_ids, state.motion_ids),
-                    motion_times=sel(r_times, state.motion_times),
-                    start_times=sel(r_times, state.start_times),
-                    time=sel(torch.zeros_like(time), time),
-                    done=done, reward=reward, terminal_obs=obs,
-                    terminal_times=time, fail_rates=fail_rates,
-                    reward_components=comps, tracking_error=track_err)
+        # masked reset of done envs
+        with annotate("parc.env.reset"):
+            n = state.done.shape[0]
+            if reset_pool is not None:
+                r_sim, r_ids, r_times, r_obs = _pool_take(reset_pool,
+                                                          pool_slot, n)
+            else:
+                r_ids, r_times, r_sim = self._sample_reset(
+                    lib, generator, n, fail_rates)
+                r_obs = self._compute_obs(
+                    lib, self._obs_view(r_sim, r_ids, r_times))
+
+            def sel(a, b):
+                mask = is_done.reshape(is_done.shape + (1,) * (a.ndim - 1))
+                return torch.where(mask, a, b)
+
+            # masked select only over the per-env fields; done/reward/stats
+            # report the pre-reset values, and the pre-reset obs is kept for
+            # terminal bootstrapping
+            return state.replace(
+                sim=engine.where_state(is_done, r_sim, state.sim),
+                obs=sel(r_obs, obs),
+                motion_ids=sel(r_ids, state.motion_ids),
+                motion_times=sel(r_times, state.motion_times),
+                start_times=sel(r_times, state.start_times),
+                time=sel(torch.zeros_like(time), time),
+                done=done, reward=reward, terminal_obs=obs,
+                terminal_times=time, fail_rates=fail_rates,
+                reward_components=comps, tracking_error=track_err)

@@ -470,99 +470,111 @@ class ParkourEnv(DeepMimicEnv):
             raise ValueError("step needs a reset_pool or a generator")
         with annotate("parc.env.step"):
             lib, mdm_state = self._unwrap(bundle)
-            cfg = self.cfg
-            nm, nd = self.pcfg.mgdm_num, self.n_dm
+            state = self._replan_if_due(mdm_state, state, generator,
+                                        replan_draws)
+            state = state.replace(sim=self._physics(lib, state, actions))
+            return self._post_physics(bundle, lib, state, reset_pool,
+                                      pool_slot, generator)
 
-            # --- synchronized replan (mgdm rows only) ------------------------
+    def _replan_if_due(self, mdm_state: MDMState, state: ParkourState,
+                       generator: Optional[torch.Generator],
+                       replan_draws: Optional[ReplanDraws]) -> ParkourState:
+        """The replan timer's tick, and the synchronized replan of the mgdm
+        rows when it runs out."""
+        if self.pcfg.mgdm_num == 0:
+            return state
+        state = state.replace(replan_timer=state.replan_timer - 1)
+        if state.replan_timer <= 0:
+            if replan_draws is None:
+                if generator is None:
+                    raise ValueError("a replan needs a generator or "
+                                     "replan_draws")
+                replan_draws = self.draw_replan(generator)
+            state = self._replan(mdm_state, state, replan_draws)
+        return state
+
+    def _after_physics(self, lib, state: ParkourState,
+                       reset_pool: Optional[ParkourResetPool],
+                       pool_slot: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator]) -> ParkourState:
+        """DeepMimicEnv._after_physics against the combined reference, with
+        the mgdm rows' out-of-bounds termination and the masked reset of
+        their windows and targets."""
+        cfg = self.cfg
+        nm, nd = self.pcfg.mgdm_num, self.n_dm
+        sim = state.sim
+        state = state.replace(time=state.time + cfg.control_dt,
+                              motion_times=state.motion_times + cfg.control_dt)
+
+        # --- reward / done / obs against the combined reference ----------
+        with annotate("parc.env.reference"):
+            ref = self._combined_ref(lib, state)
+            ref_body_pos, ref_body_rot = cm.forward_kinematics(
+                self.model, ref.root_pos, ref.root_rot, ref.joint_rot)
+        with annotate("parc.env.reward"):
+            reward, comps = self._compute_reward(state, ref, ref_body_pos)
+            done = self._compute_done(lib, state, ref, ref_body_pos)
             if nm > 0:
-                state = state.replace(replan_timer=state.replan_timer - 1)
-                if state.replan_timer <= 0:
-                    if replan_draws is None:
-                        if generator is None:
-                            raise ValueError("a replan needs a generator or "
-                                             "replan_draws")
-                        replan_draws = self.draw_replan(generator)
-                    state = self._replan(mdm_state, state, replan_draws)
+                # out-of-bounds z kills mgdm rows far below or above the
+                # ground under them
+                z = sim.root_pos[nd:, 2]
+                ground = terrain_lib.get_hf_val(self.mgdm_terrain,
+                                                sim.root_pos[nd:, 0:2])
+                oob = ((z - ground < self.pcfg.oob_z_low)
+                       | (z - ground > self.pcfg.oob_z_high))
+                mg_done = torch.where(oob & (done[nd:] == DoneFlags.NULL),
+                                      DoneFlags.FAIL, done[nd:])
+                done = torch.cat([done[:nd], mg_done])
+            track_err = self._tracking_error(state, ref, ref_body_pos,
+                                             ref_body_rot)
+            is_done = done != DoneFlags.NULL
+            fail_rates = self._fail_rate_ema(lib, state, done)
+        with annotate("parc.env.obs"):
+            obs = self._compute_obs_parkour(lib, state)
 
-            # --- physics -----------------------------------------------------
-            sim = self._physics(lib, state, actions)
-            state = state.replace(
-                sim=sim, time=state.time + cfg.control_dt,
-                motion_times=state.motion_times + cfg.control_dt)
-
-            # --- reward / done / obs against the combined reference ----------
-            with annotate("parc.env.reference"):
-                ref = self._combined_ref(lib, state)
-                ref_body_pos, ref_body_rot = cm.forward_kinematics(
-                    self.model, ref.root_pos, ref.root_rot, ref.joint_rot)
-            with annotate("parc.env.reward"):
-                reward, comps = self._compute_reward(state, ref,
-                                                     ref_body_pos)
-                done = self._compute_done(lib, state, ref, ref_body_pos)
+        # --- masked reset ------------------------------------------------
+        with annotate("parc.env.reset"):
+            n = done.shape[0]
+            if reset_pool is not None:
+                r_sim, r_ids, r_times, r_obs = _pool_take(reset_pool,
+                                                          pool_slot, n)
                 if nm > 0:
-                    # out-of-bounds z kills mgdm rows far below or above the
-                    # ground under them
-                    z = sim.root_pos[nd:, 2]
-                    ground = terrain_lib.get_hf_val(self.mgdm_terrain,
-                                                    sim.root_pos[nd:, 0:2])
-                    oob = ((z - ground < self.pcfg.oob_z_low)
-                           | (z - ground > self.pcfg.oob_z_high))
-                    mg_done = torch.where(oob & (done[nd:] == DoneFlags.NULL),
-                                          DoneFlags.FAIL, done[nd:])
-                    done = torch.cat([done[:nd], mg_done])
-                track_err = self._tracking_error(state, ref, ref_body_pos,
-                                                 ref_body_rot)
-                is_done = done != DoneFlags.NULL
-                fail_rates = self._fail_rate_ema(lib, state, done)
-            with annotate("parc.env.obs"):
-                obs = self._compute_obs_parkour(lib, state)
+                    idxm = (pool_slot[nd:].long() * nm
+                            + torch.arange(nm, device=self.device))
+                    r_frames = reset_pool.ref_frames34[idxm]
+                    r_contacts = reset_pool.ref_contacts[idxm]
+                    r_targets = reset_pool.target_xy[idxm]
+            else:
+                (r_sim, r_ids, r_times, r_obs, r_frames, r_contacts,
+                 r_targets) = self._sample_reset_parkour(
+                     lib, generator, n, fail_rates)
 
-            # --- masked reset ------------------------------------------------
-            with annotate("parc.env.reset"):
-                n = done.shape[0]
-                if reset_pool is not None:
-                    r_sim, r_ids, r_times, r_obs = _pool_take(
-                        reset_pool, pool_slot, n)
-                    if nm > 0:
-                        idxm = (pool_slot[nd:].long() * nm
-                                + torch.arange(nm, device=self.device))
-                        r_frames = reset_pool.ref_frames34[idxm]
-                        r_contacts = reset_pool.ref_contacts[idxm]
-                        r_targets = reset_pool.target_xy[idxm]
-                else:
-                    (r_sim, r_ids, r_times, r_obs, r_frames, r_contacts,
-                     r_targets) = self._sample_reset_parkour(
-                         lib, generator, n, fail_rates)
+            def sel(a, b):
+                mask = is_done.reshape(is_done.shape + (1,) * (a.ndim - 1))
+                return torch.where(mask, a, b)
 
-                def sel(a, b):
-                    mask = is_done.reshape(is_done.shape
-                                           + (1,) * (a.ndim - 1))
-                    return torch.where(mask, a, b)
+            new_frames, new_contacts = state.ref_frames34, state.ref_contacts
+            new_targets, new_synth = state.target_xy, state.ref_synthetic
+            if nm > 0:
+                mg = is_done[nd:]
+                new_frames = torch.where(mg[:, None, None], r_frames,
+                                         new_frames)
+                new_contacts = torch.where(mg[:, None, None], r_contacts,
+                                           new_contacts)
+                new_targets = torch.where(mg[:, None], r_targets, new_targets)
+                # reset rows land on synthetic standing windows again
+                new_synth = torch.where(mg, 1.0, new_synth)
 
-                new_frames, new_contacts = (state.ref_frames34,
-                                            state.ref_contacts)
-                new_targets, new_synth = state.target_xy, state.ref_synthetic
-                if nm > 0:
-                    mg = is_done[nd:]
-                    new_frames = torch.where(mg[:, None, None], r_frames,
-                                             new_frames)
-                    new_contacts = torch.where(mg[:, None, None], r_contacts,
-                                               new_contacts)
-                    new_targets = torch.where(mg[:, None], r_targets,
-                                              new_targets)
-                    # reset rows land on synthetic standing windows again
-                    new_synth = torch.where(mg, 1.0, new_synth)
-
-                time = state.time
-                return state.replace(
-                    sim=engine.where_state(is_done, r_sim, sim),
-                    obs=sel(r_obs, obs),
-                    motion_ids=sel(r_ids, state.motion_ids),
-                    motion_times=sel(r_times, state.motion_times),
-                    start_times=sel(r_times, state.start_times),
-                    time=sel(torch.zeros_like(time), time),
-                    ref_frames34=new_frames, ref_contacts=new_contacts,
-                    target_xy=new_targets, ref_synthetic=new_synth,
-                    done=done, reward=reward, terminal_obs=obs,
-                    terminal_times=time, fail_rates=fail_rates,
-                    reward_components=comps, tracking_error=track_err)
+            time = state.time
+            return state.replace(
+                sim=engine.where_state(is_done, r_sim, sim),
+                obs=sel(r_obs, obs),
+                motion_ids=sel(r_ids, state.motion_ids),
+                motion_times=sel(r_times, state.motion_times),
+                start_times=sel(r_times, state.start_times),
+                time=sel(torch.zeros_like(time), time),
+                ref_frames34=new_frames, ref_contacts=new_contacts,
+                target_xy=new_targets, ref_synthetic=new_synth,
+                done=done, reward=reward, terminal_obs=obs,
+                terminal_times=time, fail_rates=fail_rates,
+                reward_components=comps, tracking_error=track_err)

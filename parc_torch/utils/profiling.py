@@ -14,7 +14,10 @@
 The program's spans are named ``parc.<layer>.<part>``: ``parc.env.step``
 with ``.reference``, ``.reward``, ``.obs``, ``.reset`` inside it
 (``envs/deepmimic.py``, ``envs/parkour.py``; ``parc.env.reset_pool`` around
-a rollout's reset pool), ``parc.physics.control_step``
+a rollout's reset pool; ``parc.env.graph_replay``, an instant marker closed
+just before a pooled CUDA step replays its post-physics chain as one CUDA
+graph, ``envs/step_graph.py``, so the gaps of the replay stay under
+``parc.env.step``), ``parc.physics.control_step``
 (``physics/engine.py``), ``parc.ppo.act`` (each step of
 ``PPOAgent.rollout``), ``parc.env.replan`` (``ParkourEnv._replan``) with
 ``parc.ddim.denoise`` for each DDIM timestep (``MDM.ddim_sample``), and

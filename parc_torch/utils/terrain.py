@@ -93,10 +93,12 @@ def stack_terrains(terrains: Sequence[Terrain]) -> Terrain:
 
 def get_grid_index(terrain: Terrain, points_xy: torch.Tensor) -> torch.Tensor:
     """Nearest-cell (int64) indices for world xy points, clamped in-bounds
-    (round half to even, as numpy and JAX round)."""
+    (round half to even, as numpy and JAX round). The bounds are host
+    ints, so nothing is copied to the device (a CUDA graph may hold it)."""
     inds = torch.round((points_xy - terrain.min_point) / terrain.dxdy).long()
-    hi = torch.as_tensor(terrain.dims, device=inds.device) - 1
-    return torch.clamp(inds, min=torch.zeros_like(hi), max=hi)
+    h, w = terrain.dims
+    return torch.stack([torch.clamp(inds[..., 0], 0, h - 1),
+                        torch.clamp(inds[..., 1], 0, w - 1)], dim=-1)
 
 
 def get_hf_val(terrain: Terrain, points_xy: torch.Tensor) -> torch.Tensor:
