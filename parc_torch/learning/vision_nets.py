@@ -14,6 +14,13 @@ GELU, post-norm encoder layers with LayerNorm epsilon 1e-6 (the MDM's
 ``EncoderLayer``, without dropout). With ``compute_dtype`` the trunk runs
 in that type under ``torch.autocast`` (the parameters stay f32) and the
 heads stay f32.
+
+``DMViT``'s trunk opens the spans ``parc.vit.tokenize`` (the conv
+tokenizer, the segment tokens, the class token and the positions) and
+``parc.vit.encode`` (the encoder layers), and counts its rows: ``rows``,
+every observation through the trunk, and ``grad_rows``, those taken while
+autograd records (the update's minibatches). Both counters are Python ints
+read from shapes, so counting never waits on the device.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from parc_torch.diffusion.transformer import (EncoderLayer, _dense,
                                               _lecun_normal_, gelu)
 from parc_torch.envs.obs import ObsLayout
 from parc_torch.learning.networks import _fan_avg_uniform_
+from parc_torch.utils.profiling import annotate
 
 _CONVS = ((1, 32, (1, 1)), (32, 64, (1, 3)), (64, 64, (1, 3)))  # in, out, s
 _KERNEL = (3, 5)
@@ -184,18 +192,27 @@ class DMViT(_VisionPolicy):
             EncoderLayer(d_model, num_heads, 4 * d_model, dropout=0.0,
                          generator=generator, device=device)
             for _ in range(num_layers)])
+        self.rows = 0
+        self.grad_rows = 0
 
     def _trunk(self, obs):
-        hf_tokens = self.tokenizer(obs[..., self.hf_slice])
-        toks = torch.stack([dense(obs[..., sl]) for dense, sl
-                            in zip(self.seg_dense, self.seg_slices)], dim=-2)
-        cls = self.cls.expand(toks.shape[:-2] + self.cls.shape)
-        dtype = self.compute_dtype or torch.float32
-        x = torch.cat([cls.to(dtype), toks.to(dtype), hf_tokens.to(dtype)],
-                      dim=-2)
-        x = x + self.pos.to(dtype)
-        lead = x.shape[:-2]
-        x = x.reshape((-1,) + x.shape[-2:])
-        for layer in self.layers:
-            x = layer(x)
-        return x[:, 0, :].reshape(lead + x.shape[-1:])
+        rows = math.prod(obs.shape[:-1])
+        self.rows += rows
+        if torch.is_grad_enabled():
+            self.grad_rows += rows
+        with annotate("parc.vit.tokenize"):
+            hf_tokens = self.tokenizer(obs[..., self.hf_slice])
+            toks = torch.stack([dense(obs[..., sl]) for dense, sl
+                                in zip(self.seg_dense, self.seg_slices)],
+                               dim=-2)
+            cls = self.cls.expand(toks.shape[:-2] + self.cls.shape)
+            dtype = self.compute_dtype or torch.float32
+            x = torch.cat([cls.to(dtype), toks.to(dtype),
+                           hf_tokens.to(dtype)], dim=-2)
+            x = x + self.pos.to(dtype)
+        with annotate("parc.vit.encode"):
+            lead = x.shape[:-2]
+            x = x.reshape((-1,) + x.shape[-2:])
+            for layer in self.layers:
+                x = layer(x)
+            return x[:, 0, :].reshape(lead + x.shape[-1:])

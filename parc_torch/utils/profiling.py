@@ -20,14 +20,15 @@ graph, ``envs/step_graph.py``, so the gaps of the replay stay under
 ``parc.env.step``), ``parc.physics.control_step``
 (``physics/engine.py``), ``parc.ppo.act`` (each step of
 ``PPOAgent.rollout``), ``parc.env.replan`` (``ParkourEnv._replan``) with
-``parc.ddim.denoise`` for each DDIM timestep (``MDM.ddim_sample``), and
+``parc.ddim.denoise`` for each DDIM timestep (``MDM.ddim_sample``),
 ``parc.mdm.batch``, ``.forward``, ``.backward``, ``.update`` in
-``MDM.train_step``. In a trace written by ``profile_iters`` or
-``profile_epochs`` they name the code the host was running while the
-device waited: each idle gap on the device's timeline lies under the
-innermost span open at its start. A span reads nothing from the device
-and never synchronizes; a span is stamped by the profiler that records
-the device's kernels, so it shares their clock.
+``MDM.train_step``, and ``parc.vit.tokenize``, ``parc.vit.encode`` in the
+ViT policy's trunk (``learning/vision_nets.py``). In a trace written by
+``profile_iters`` or ``profile_epochs`` they name the code the host was
+running while the device waited: each idle gap on the device's timeline
+lies under the innermost span open at its start. A span reads nothing
+from the device and never synchronizes; a span is stamped by the
+profiler that records the device's kernels, so it shares their clock.
 """
 
 from __future__ import annotations
